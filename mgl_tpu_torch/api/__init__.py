@@ -1,0 +1,127 @@
+"""Public API: GATK's two native-binding calls on PyTorch.
+
+Counterparts of ``mgl_tpu.api``, with the same signatures plus
+``device=``:
+
+* :class:`SmithWatermanAligner` - MicrosoftSmithWaterman.align: (ref, alt,
+  params, strategy) -> (cigar, offset), and the batched ``align_batch``;
+* :class:`PairHmmEngine` - MicrosoftPairHmm.computeLikelihoods: reads x
+  haps -> log10 likelihood matrix with the f32 -> f64 rescue cascade.
+
+On a CUDA device only the hand-written kernels run; on ``"cpu"`` only
+their plain torch versions do.  Inputs are validated here, since the
+kernels assume non-empty sequences.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from mgl_tpu.batch.bucketing import bucket_pairs
+from mgl_tpu.core.params import OverhangStrategy, SWParameters
+from mgl_tpu_torch.device import resolve_device
+
+__all__ = [
+    "SWResult",
+    "SmithWatermanAligner",
+    "PairHmmEngine",
+    "OverhangStrategy",
+    "SWParameters",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class SWResult:
+    cigar: str
+    offset: int
+
+
+def _as_u8(seq) -> np.ndarray:
+    if isinstance(seq, np.ndarray):
+        a = seq.astype(np.uint8)
+    else:
+        a = np.frombuffer(bytes(seq), dtype=np.uint8)
+    if a.size == 0:
+        raise ValueError("empty sequence")
+    return a
+
+
+class SmithWatermanAligner:
+    """Batched affine-gap SW aligner with exact reference CIGAR parity."""
+
+    def __init__(self, max_batch: int = 2048,
+                 device: str | torch.device = "cuda"):
+        self.max_batch = max_batch
+        self.device = resolve_device(device)
+
+    def align(self, ref, alt, params: SWParameters,
+              strategy: OverhangStrategy) -> SWResult:
+        """Single-pair alignment (MicrosoftSmithWaterman.java:66-86 shape)."""
+        return self.align_batch([ref], [alt], params, strategy)[0]
+
+    def align_batch(self, refs, alts, params: SWParameters,
+                    strategy: OverhangStrategy) -> list[SWResult]:
+        from mgl_tpu_torch.kernels.sw_cuda import align_batch_banded
+
+        refs = [_as_u8(r).tobytes() for r in refs]
+        alts = [_as_u8(a).tobytes() for a in alts]
+        if len(refs) != len(alts):
+            raise ValueError("refs and alts must have equal length")
+        results: list[SWResult | None] = [None] * len(refs)
+        buckets = bucket_pairs([len(r) for r in refs], [len(a) for a in alts],
+                               max_batch=self.max_batch)
+        for _, idxs in buckets:
+            got = align_batch_banded([refs[i] for i in idxs],
+                                     [alts[i] for i in idxs], params,
+                                     strategy, self.device)
+            for i, (cig, off) in zip(idxs, got):
+                results[i] = SWResult(cig, off)
+        return results  # type: ignore[return-value]
+
+
+class PairHmmEngine:
+    """PairHMM likelihood engine with the reference's precision cascade.
+
+    ``use_double`` and ``fast_path`` are not ported yet and raise
+    NotImplementedError rather than run another path.
+    """
+
+    def __init__(self, use_double: bool = False, fast_path: bool = False,
+                 device: str | torch.device = "cuda"):
+        if use_double or fast_path:
+            raise NotImplementedError(
+                "use_double and fast_path are not ported to mgl_tpu_torch yet")
+        self.device = resolve_device(device)
+
+    def compute_likelihoods(self, reads: list[dict], haps: list) -> np.ndarray:
+        """reads: dicts with keys bases/q/i/d/c (uint8 arrays or bytes);
+        haps: list of uint8 arrays or bytes.  Returns (R, H) float64 log10
+        likelihood matrix (MicrosoftPairHmm.java:104-111 layout)."""
+        from mgl_tpu_torch.ops.pairhmm import compute_likelihoods
+
+        checked = []
+        for rd in reads:
+            bases = _as_u8(rd["bases"])
+            n = len(bases)
+            r = {"bases": bases}
+            for k in ("q", "i", "d", "c"):
+                a = np.asarray(rd[k], dtype=np.uint8)
+                if a.shape != (n,):
+                    raise ValueError(
+                        f"quality track '{k}' length {a.shape} != read "
+                        f"length {n}")
+                r[k] = a
+            checked.append(r)
+        return compute_likelihoods(checked, [_as_u8(h) for h in haps],
+                                   self.device)
+
+    def compute_likelihoods_stream(self, batches, depth: int = 2):
+        """Pipelined likelihoods over a stream of batches: not ported yet."""
+        raise NotImplementedError(
+            "compute_likelihoods_stream is not ported to mgl_tpu_torch yet")
+
+    def done(self) -> None:  # parity with PairHMMNativeBinding.done()
+        pass

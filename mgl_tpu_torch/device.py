@@ -1,0 +1,25 @@
+"""Device selection: an explicit device, never a silent fall-back."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """The torch device to run on.
+
+    ``"cuda"`` (or ``"cuda:N"``) runs the hand-written kernels and raises
+    when no card is present; ``"cpu"`` runs their plain torch versions.
+    Nothing drops from one to the other on its own.
+    """
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r} requested, but torch.cuda.is_available() "
+                "is False")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
+    return dev

@@ -1,0 +1,192 @@
+"""Banded PairHMM kernel wrappers (f32 main pass, f64 rescue) and their
+host staging.
+
+:func:`pairhmm_banded_f32` launches ``csrc/pairhmm_banded.cu`` in float,
+the counterpart of ``mgl_tpu/kernels/pairhmm_pallas.py:
+_pairhmm_banded_kernel``; :func:`pairhmm_banded_f64` launches it in
+double, the counterpart of ``pairhmm_xf_pallas.py:_pairhmm_banded_xf_
+kernel``.  On CPU tensors both run the plain torch forward
+(``mgl_tpu_torch.ops.pairhmm.forward_plain``).  The kernel source says
+what bounds it on the card.
+
+The host ships raw uint8 quality tracks and bases; the transition and
+emission planes are built on the device by table gathers
+(:func:`read_planes`, the port of ``pairhmm_pallas.py:1121
+_read_planes_device``), which are plain torch ops, not a kernel.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mgl_tpu_torch import _build
+from mgl_tpu_torch.ops.pairhmm import N_PLANES, forward_plain
+from mgl_tpu_torch.tables import (BASE_ENC, CTX_F64, QualityContext,
+                                  context_tables)
+
+BAND = 32
+_TRACKS = ("q", "i", "d", "c", "bases")
+
+
+def _check(name, x, dtype, shape, device):
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: want {dtype} {tuple(shape)}, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, planes on {device}")
+
+
+def _forward(entry: str, dtype: torch.dtype, planes, rchar, rslen, haps,
+             haplen, y_init, ridx, hidx) -> torch.Tensor:
+    n_r, n_p, rows = planes.shape
+    n_h, hap_cols = haps.shape
+    B = ridx.shape[0]
+    dev = planes.device
+    _check("planes", planes, dtype, (n_r, N_PLANES, rows), dev)
+    _check("rchar", rchar, torch.int32, (n_r, rows), dev)
+    _check("rslen", rslen, torch.int32, (n_r,), dev)
+    _check("haps", haps, torch.int32, (n_h, hap_cols), dev)
+    _check("haplen", haplen, torch.int32, (n_h,), dev)
+    _check("y_init", y_init, dtype, (n_h,), dev)
+    _check("ridx", ridx, torch.int64, (B,), dev)
+    _check("hidx", hidx, torch.int64, (B,), dev)
+    if (rows - 2) % BAND:
+        raise ValueError(f"planes need 32k + 2 rows, got {rows}")
+    if dev.type == "cpu":
+        return forward_plain(planes, rchar, rslen, haps, haplen, y_init,
+                             ridx, hidx)
+    if dev.type != "cuda":
+        raise ValueError(f"pairhmm kernels run on cuda or cpu, not {dev}")
+    if B == 0 or hap_cols == 0:
+        raise ValueError(f"the PairHMM kernel needs pairs and hap bases, got "
+                         f"{B} pairs and {hap_cols} hap columns")
+    carry_cols = hap_cols + BAND + 2
+    args = [x.contiguous() for x in (planes, rchar, rslen, haps, haplen,
+                                     y_init, ridx, hidx)]
+    out = torch.empty((B,), dtype=dtype, device=dev)
+    carry = torch.empty((B, 2, carry_cols), dtype=dtype, device=dev)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        code = getattr(lib, entry)(
+            *(a.data_ptr() for a in args), B, rows, hap_cols, carry_cols,
+            carry.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(lib, code, entry)
+    return out
+
+
+def pairhmm_banded_f32(planes, rchar, rslen, haps, haplen, y_init, ridx,
+                       hidx) -> torch.Tensor:
+    """(B,) float32 forward scores, 2^120-scaled, of pairs
+    (ridx[b], hidx[b]).  ``planes`` (n_reads, 7, 32k+2) float32 by matrix
+    row (see :func:`read_planes`), ``rchar`` (n_reads, 32k+2) int32
+    one-hot, ``rslen`` (n_reads,) int32 <= 32k, ``haps`` (n_haps, H) int32
+    one-hot, ``haplen`` (n_haps,) int32 <= H, ``y_init`` (n_haps,) float32,
+    ``ridx``/``hidx`` (B,) int64, each below n_reads / n_haps (not
+    checked on the card: that would synchronise)."""
+    out = _forward("mgl_pairhmm_banded_f32", torch.float32, planes, rchar,
+                   rslen, haps, haplen, y_init, ridx, hidx)
+    if planes.device.type == "cuda":
+        pairhmm_banded_f32.launches += 1
+    return out
+
+
+def pairhmm_banded_f64(planes, rchar, rslen, haps, haplen, y_init, ridx,
+                       hidx) -> torch.Tensor:
+    """As :func:`pairhmm_banded_f32` in float64 with CTX_F64 planes and
+    2^1020 scaling: the rescue tier."""
+    out = _forward("mgl_pairhmm_banded_f64", torch.float64, planes, rchar,
+                   rslen, haps, haplen, y_init, ridx, hidx)
+    if planes.device.type == "cuda":
+        pairhmm_banded_f64.launches += 1
+    return out
+
+
+pairhmm_banded_f32.launches = 0
+pairhmm_banded_f64.launches = 0
+
+
+def stack_tracks(reads: list[dict]) -> tuple[np.ndarray, ...]:
+    """(n, rmax) uint8 matrices of q, i, d, c and bases, zero-padded, and
+    (n,) int32 read lengths."""
+    lens = np.fromiter((len(r["bases"]) for r in reads), np.int32, len(reads))
+    rmax = int(lens.max())
+    live = np.arange(rmax)[None, :] < lens[:, None]
+    mats = []
+    for key in _TRACKS:
+        m = np.zeros((len(reads), rmax), np.uint8)
+        m[live] = np.concatenate([np.asarray(r[key], np.uint8) for r in reads])
+        mats.append(m)
+    return (*mats, lens)
+
+
+def read_planes(q, i, d, c, bases, rslen, tables: dict, rows: int):
+    """Per-read planes on the tracks' device: (planes (n, 7, rows) in the
+    tables' dtype, rchar (n, rows) int32 one-hot).  Row r is matrix row r
+    (read base r); row 0 and rows past each read are zero.  Planes:
+    pMM, pGapM, pMX, pMY, pZZ, 1 - ph2pr[q], ph2pr[q] / 3, with the same
+    table values and op order as the JAX package's plane builders
+    (core/context.py:read_transition_rows)."""
+    n, rmax = q.shape
+    ph2pr, m2m = tables["ph2pr"], tables["match_to_match"]
+    qi, ii, di, ci = ((x & 127).long() for x in (q, i, d, c))
+    mn, mx = torch.minimum(ii, di), torch.maximum(ii, di)
+    distm = ph2pr[qi]
+    vals = torch.stack([
+        m2m[((mx * (mx + 1)) >> 1) + mn],     # pMM
+        1.0 - ph2pr[ci],                      # pGapM
+        ph2pr[ii],                            # pMX
+        ph2pr[di],                            # pMY
+        ph2pr[ci],                            # pZZ
+        1.0 - distm,                          # distm on a match
+        distm * tables["one_third"],          # distm on a mismatch
+    ], dim=1)
+    live = (torch.arange(rmax, device=q.device)[None, :]
+            < rslen.to(q.device)[:, None])
+    planes = torch.zeros((n, N_PLANES, rows), dtype=tables["dtype"],
+                         device=q.device)
+    planes[:, :, 1:rmax + 1] = vals * live[:, None, :]
+    rchar = torch.zeros((n, rows), dtype=torch.int32, device=q.device)
+    rchar[:, 1:rmax + 1] = tables["base_enc"][bases.long()] * live
+    return planes, rchar
+
+
+def stage_pairs(reads: list[dict], haps: list[np.ndarray],
+                pairs: list[tuple[int, int]], ctx: QualityContext, device
+                ) -> tuple[torch.Tensor, ...]:
+    """The kernel arguments for (read, hap) pairs in ``ctx``'s precision:
+    each distinct read's tracks and each distinct hap ship once, planes
+    are gathered on ``device``, and ridx/hidx expand the product in the
+    kernel.  Reads' bases and haps are already normalized (BASE_NORM)."""
+    pi = np.asarray(pairs, np.int64).reshape(-1, 2)
+    ur, ridx = np.unique(pi[:, 0], return_inverse=True)
+    uh, hidx = np.unique(pi[:, 1], return_inverse=True)
+    to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    q, i, d, c, bases, rlens = stack_tracks([reads[k] for k in ur])
+    rows = (int(rlens.max()) + BAND - 1) // BAND * BAND + 2
+    rslen = to_dev(rlens)
+    planes, rchar = read_planes(*(to_dev(a) for a in (q, i, d, c, bases)),
+                                rslen, context_tables(ctx, device), rows)
+
+    hlens = np.fromiter((len(haps[k]) for k in uh), np.int32, len(uh))
+    hp = np.zeros((len(uh), int(hlens.max())), np.int32)
+    hp[np.arange(hp.shape[1])[None, :] < hlens[:, None]] = BASE_ENC[
+        np.concatenate([np.asarray(haps[k], np.uint8) for k in uh])]
+    y_init = ctx.dtype(ctx.initial_constant) / hlens.astype(ctx.dtype)
+    return (planes, rchar, rslen, to_dev(hp), to_dev(hlens), to_dev(y_init),
+            to_dev(ridx.astype(np.int64)), to_dev(hidx.astype(np.int64)))
+
+
+def scores(reads: list[dict], haps: list[np.ndarray],
+           pairs: list[tuple[int, int]], ctx: QualityContext, device
+           ) -> torch.Tensor:
+    """(B,) scores of (read, hap) pairs on ``device``, not synchronised.
+    CTX_F32: float32 scaled by 2^120, the main pass (port of
+    pairhmm_pallas.py:1237 forward_scores_product).  CTX_F64: float64
+    scaled by 2^1020, the rescue tier for pairs whose f32 score fell under
+    1e-28 (port of pairhmm_xf_pallas.py:694 in native f64).  Reads' bases
+    and haps are already normalized (BASE_NORM)."""
+    kernel = pairhmm_banded_f64 if ctx is CTX_F64 else pairhmm_banded_f32
+    return kernel(*stage_pairs(reads, haps, pairs, ctx, device))

@@ -1,0 +1,156 @@
+"""Fixtures and checks shared by the port's tests, ``chip_smoke.py`` and
+``mgl_tpu_torch.profile_e2e``: seeded SW pairs and GATK-shaped PairHMM
+regions, golden rows, tensor packers, a traceback comparison and a
+CUDA-event timer.  Nothing on the main path imports this module.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+
+import numpy as np
+import torch
+
+from mgl_tpu_torch.ops.sw import BAND
+
+ACGT = np.frombuffer(b"ACGT", np.uint8)
+GOLDEN = pathlib.Path(__file__).resolve().parents[1] / "tests" / "golden"
+
+
+def u8(s: str) -> np.ndarray:
+    return np.frombuffer(s.encode(), np.uint8)
+
+
+def load_golden(name: str) -> list[dict]:
+    """The rows of ``tests/golden/<name>`` (``.json`` list or ``.jsonl``)."""
+    text = (GOLDEN / name).read_text()
+    if name.endswith(".jsonl"):
+        return [json.loads(line) for line in text.splitlines()]
+    return json.loads(text)
+
+
+def golden_read(row: dict) -> dict:
+    """A read dict (uint8 bases/q/i/d/c) from a KAT or PairHMM golden row."""
+    read = {k: np.array(row[k], np.uint8) for k in "qidc"}
+    read["bases"] = u8(row["read"])
+    return read
+
+
+def golden_groups(rows: list[dict]) -> dict:
+    """SW golden rows grouped by (match, mismatch, open, ext, strategy)."""
+    groups: dict = {}
+    for r in rows:
+        key = (r["match"], r["mismatch"], r["open"], r["ext"], r["strategy"])
+        groups.setdefault(key, []).append(r)
+    return groups
+
+
+def sw_pairs(seed: int, n: int, tlen_range: tuple[int, int],
+             qlen_range: tuple[int, int], err: float = 0.03
+             ) -> tuple[list[bytes], list[bytes]]:
+    """n pairs whose query is a mutated slice of its target: SNPs at rate
+    ``err`` and one 3-base indel once the query passes 20 bases; lengths
+    drawn from the inclusive ranges."""
+    rng = np.random.default_rng(seed)
+    targets, queries = [], []
+    for _ in range(n):
+        tl = int(rng.integers(tlen_range[0], tlen_range[1] + 1))
+        ql = int(rng.integers(qlen_range[0], qlen_range[1] + 1))
+        t = rng.choice(ACGT, tl)
+        q = t[int(rng.integers(0, max(tl - ql, 0) + 1)):][:ql].copy()
+        q[rng.random(len(q)) < err] = rng.choice(ACGT)
+        if len(q) > 20:
+            p = int(rng.integers(5, len(q) - 5))
+            q = (np.concatenate([q[:p], rng.choice(ACGT, 3), q[p:]])
+                 if rng.random() < 0.5 else np.delete(q, slice(p, p + 3)))
+        q = q[:ql] if len(q) >= ql else np.concatenate(
+            [q, rng.choice(ACGT, ql - len(q))])
+        targets.append(t.tobytes())
+        queries.append(q.tobytes())
+    return targets, queries
+
+
+def sw_tensors(targets: list[bytes], queries: list[bytes], device
+               ) -> tuple[torch.Tensor, ...]:
+    """(tgt, qry, tlen, qlen) on ``device``, as the SW kernel takes them."""
+    from mgl_tpu_torch.kernels.sw_cuda import pack_sequences
+
+    tlen = np.array([len(t) for t in targets], np.int32)
+    qlen = np.array([len(q) for q in queries], np.int32)
+    return tuple(torch.from_numpy(a).to(device) for a in (
+        pack_sequences(targets), pack_sequences(queries), tlen, qlen))
+
+
+def engine_region(seed: int, n_reads: int = 512, n_haps: int = 12,
+                  rdlen: int = 151, haplen: int = 420
+                  ) -> tuple[list[dict], list[np.ndarray]]:
+    """A GATK-shaped assembly region: haps that differ by single SNPs,
+    reads drawn from the first with one error each, and every 16th read
+    random with high qualities - a tail whose f32 score underflows into
+    the f64 rescue (the shape of bench.py's engine fixture)."""
+    rng = np.random.default_rng(seed)
+    base = rng.choice(ACGT, haplen)
+    haps = [base.copy()]
+    for p in sorted(int(x) for x in
+                    rng.integers(haplen // 3, haplen - 10, n_haps - 1)):
+        h = haps[-1].copy()
+        h[p] = ACGT[(int(np.searchsorted(ACGT, h[p])) + 1) % 4]
+        haps.append(h)
+    reads = []
+    for k in range(n_reads):
+        st = int(rng.integers(0, haplen - rdlen))
+        b = base[st: st + rdlen].copy()
+        if k % 16 == 0:
+            b = rng.choice(ACGT, rdlen)
+            q = rng.integers(45, 60, rdlen).astype(np.uint8)
+        else:
+            b[rng.integers(0, rdlen)] = ACGT[rng.integers(0, 4)]
+            q = rng.integers(15, 45, rdlen).astype(np.uint8)
+        reads.append(dict(bases=b, q=q, i=q, d=q,
+                          c=np.full(rdlen, 10, np.uint8)))
+    return reads, haps
+
+
+def traceback_mismatches(words_a: torch.Tensor, words_b: torch.Tensor,
+                         tlen: torch.Tensor, qlen: torch.Tensor,
+                         words_per_band: int) -> int:
+    """How many real cells (1 <= i <= tlen, 1 <= j <= qlen) - the cells a
+    CIGAR decode may read - hold different nibbles in two (B, G, 32)
+    traceback outputs of the same pairs."""
+    dev = words_a.device
+    B, G, _ = words_a.shape
+    nb, wpb = G // words_per_band, words_per_band
+    chunk = max(1, (1 << 24) // (G * BAND))   # pairs per pass, ~16M words
+    i = (torch.arange(nb, device=dev)[:, None, None] * BAND
+         + torch.arange(BAND, device=dev)[None, :, None] + 1)   # (nb, 32, 1)
+    s = torch.arange(BAND, device=dev)[None, :, None]
+    w = torch.arange(wpb, device=dev)[None, None, :]
+    bad = 0
+    for b0 in range(0, B, chunk):
+        tl = tlen[b0:b0 + chunk].to(dev).long()[:, None, None, None]
+        ql = qlen[b0:b0 + chunk].to(dev).long()[:, None, None, None]
+        diff = (words_a[b0:b0 + chunk].long()
+                ^ words_b[b0:b0 + chunk].long()) & 0xFFFFFFFF
+        diff = diff.reshape(-1, nb, wpb, BAND).transpose(2, 3)  # (b, nb, 32, wpb)
+        for n in range(8):
+            t = 8 * w + n                                        # j - 1 + s
+            real = (i <= tl) & (t >= s) & (t - s < ql)
+            bad += int((((diff >> (4 * n)) & 0xF) != 0)[real].sum())
+    return bad
+
+
+def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean device time of fn() in ms: CUDA events around ``iters`` calls
+    after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
