@@ -4,24 +4,27 @@
     python3 chip_smoke.py        # from the root of a checkout, one card
 
 The quickest proof that the port still starts on the card.  It builds the
-three CUDA kernels from ``mgl_tpu_torch/csrc``, holds each against its
-plain torch version on the card, runs the goldens through both GATK entry
-points (``SmithWatermanAligner.align_batch``,
+four CUDA kernels from ``mgl_tpu_torch/csrc`` and the host CIGAR decoder
+from ``csrc/host``, holds each kernel against its plain torch version on
+the card, runs the goldens through both GATK entry points
+(``SmithWatermanAligner.align_batch``,
 ``PairHmmEngine.compute_likelihoods``), then drives the main path at a
-realistic size and times it.  Phases:
+realistic size - the aligner, the engine in shared and product mode, and
+``PairHmmEngine.compute_likelihoods_stream`` - and times it.  Phases:
 
-0. environment (card, power limit, CUDA, nvcc, native host library);
+0. environment (card, power limit, CUDA, nvcc, the port's host library);
 1. build of the kernels;
 2. each kernel vs its plain version on the card, bit for bit;
 3. all SW golden cases, CIGAR and offset exact;
 4. PairHMM known answers and golden rows through the cascade;
-5. the main path at a realistic size, with launch counts and times.
+5. the main path at a realistic size, with launch counts and times;
+6. the stream over the same regions, bit-equal to sequential calls;
+7. kernel and plain times at the main path's shapes, with bounds.
 
 Any failed phase raises and the script exits non-zero.  The last line is
 one JSON object naming the device; the line before it lists the kernels
-with their launches, errors and times.  Imports no jax, and reaches the
-JAX package's jax-free host modules (bucketing, contexts, the native
-CIGAR decoder) only through ``mgl_tpu_torch``.
+with their launches, errors, times and bounds.  Imports nothing of jax or
+of the JAX package ``mgl_tpu``.
 """
 
 from __future__ import annotations
@@ -34,6 +37,16 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SW_PARAMS = (25, -50, 110, 6)          # STANDARD_NGS
+# H100 SXM peaks for the bounds (NVIDIA's data sheet, dense, at 700 W):
+# float32 and float64 outside the tensor cores, int32 as 64 INT32 lanes
+# per SM x 132 SMs x 1.98 GHz (the clock behind the 67 TFLOP/s), HBM3.
+PEAK = {"f32": 67e12, "f64": 34e12, "int32": 132 * 64 * 1.98e9,
+        "bytes": 3.35e12}
+# operations a cell, counted from the sources: PairHMM 7 multiplies and
+# 4 adds (pairhmm_banded.cu, pairhmm_shared.cu); SW 12 integer ops for
+# the scores and 18 more for the traceback nibble (sw_banded.cu:104-122)
+FLOPS_PER_CELL = 11
+SW_OPS_PER_CELL = {True: 30, False: 12}
 
 
 def log(msg: str) -> None:
@@ -72,6 +85,17 @@ def compare_pairhmm(args, f64: bool) -> float:
     return float((got.double() - want.double()).abs().max())
 
 
+def bound(ops: float, peak: str, n_bytes: float) -> tuple[float, str]:
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for ``ops`` operations at PEAK[peak] and ``n_bytes`` of traffic."""
+    t_ops, t_bytes = ops / PEAK[peak] * 1e3, n_bytes / PEAK["bytes"] * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -86,11 +110,28 @@ def main() -> int:
                                    SmithWatermanAligner, SWParameters)
     from mgl_tpu_torch.kernels import pairhmm_cuda as ph
     from mgl_tpu_torch.kernels import sw_cuda
-    from mgl_tpu_torch.ops.pairhmm import normalize, pair_likelihoods
+    from mgl_tpu_torch.ops.pairhmm import (normalize, pair_likelihoods,
+                                           shared_forward_plain,
+                                           use_shared_kernel)
     from mgl_tpu_torch.tables import CTX_F32, CTX_F64, MIN_ACCEPTED
     from mgl_tpu_torch.testing import (ACGT, cuda_ms, engine_region,
                                        golden_groups, golden_read,
                                        load_golden, sw_pairs, sw_tensors, u8)
+
+    kernels = {"sw_banded": sw_cuda.sw_banded,
+               "pairhmm_banded_f32": ph.pairhmm_banded_f32,
+               "pairhmm_banded_f64": ph.pairhmm_banded_f64,
+               "pairhmm_shared_f32": ph.pairhmm_shared_f32}
+
+    def drive(fn):
+        """(fn(), launches of each kernel during it, host seconds): the
+        counts are set to 0 just before and read just after."""
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        t = time.perf_counter() - t0
+        return out, {n: k.launches for n, k in kernels.items()}, t
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -102,12 +143,15 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
+    t0 = time.perf_counter()
     if not sw_cuda.host_decoder_ready():
-        raise RuntimeError("native host library unavailable: the aligner "
-                           "would have no CIGAR decoder")
+        raise RuntimeError("the port's host library did not load: the "
+                           "aligner would have no CIGAR decoder")
     card = f"{smi} (nvidia-smi name, power.limit)"
     log(f"[0 env] card: {card}; torch {torch.__version__} cuda "
-        f"{torch.version.cuda}; {nvcc[-1]}; native host library loaded")
+        f"{torch.version.cuda}; {nvcc[-1]}; the port's host library "
+        f"{_build.host_library_path().name} built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
     log(smi)
 
     # ---- phase 1: build --------------------------------------------------
@@ -117,8 +161,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
 
     # ---- phase 2: each kernel vs its plain version, bit for bit ----------
-    err = {"sw_banded": 0.0, "pairhmm_banded_f32": 0.0,
-           "pairhmm_banded_f64": 0.0}
+    err = dict.fromkeys(kernels, 0.0)
     targets, queries = sw_pairs(11, 1024, (40, 250), (40, 250))
     args = sw_tensors(targets, queries, dev)
     for strategy in OverhangStrategy:
@@ -163,11 +206,49 @@ def main() -> int:
     if e:
         raise AssertionError(f"PairHMM f64 kernel != plain: {e}")
     err["pairhmm_banded_f64"] = e
+    # shared-hap-set: 200 ragged reads against 10 haps with shared
+    # prefixes, a duplicate right after its twin (a zero-length segment),
+    # resets and a hap under 8 bases, with sharing on and off
+    base = rng.choice(ACGT, 300)
+    sh_haps = [base]
+    for pos in (200, 150, 220, 240, 100, 260):
+        h = base.copy()
+        h[pos] = ACGT[(int(np.searchsorted(ACGT, h[pos])) + 1) % 4]
+        sh_haps.append(h)
+    sh_haps.insert(3, sh_haps[2].copy())
+    sh_haps += [rng.choice(ACGT, 7), base[:250].copy()]
+    sh_reads = []
+    for k in range(200):
+        n = int(rng.integers(50, 161))
+        q = rng.integers(10, 50, n).astype(np.uint8)
+        st = int(rng.integers(0, 300 - n))
+        sh_reads.append(dict(bases=base[st:st + n].copy() if k % 4
+                             else rng.choice(ACGT, n), q=q, i=q, d=q,
+                             c=np.full(n, 10, np.uint8)))
+    sh_reads, sh_haps = normalize(sh_reads, sh_haps)
+    sh_on = ph.stage_shared(sh_reads, sh_haps, dev)
+    hstream, segtab = ph.segment_table(sh_haps,
+                                       np.zeros(len(sh_haps), np.int64))
+    sh_off = (*sh_on[:3], torch.from_numpy(hstream).to(dev),
+              torch.from_numpy(segtab).to(dev), sh_on[5])
+    outs = []
+    for a in (sh_on, sh_off):
+        got = ph.pairhmm_shared_f32(*a)
+        want = shared_forward_plain(*a)
+        torch.cuda.synchronize()
+        e = float((got.double() - want.double()).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"shared kernel != plain: {e}")
+        outs.append(got)
+    if not torch.equal(*outs):
+        raise AssertionError("shared kernel: sharing on != sharing off")
     log(f"[2 kernel==plain, tolerance 0 (bit for bit)] SW {len(targets)} "
         f"pairs 40-250 bp x 4 strategies x 2 modes: ez and real-cell nibbles "
         f"equal; PairHMM f32 on {len(kat)} KAT + {len(rnd_pairs)} random "
         f"ragged pairs: equal; PairHMM f64 on {len(golden)} golden rows: "
-        f"equal")
+        f"equal; shared on {len(sh_reads)} reads of 50-160 bp x "
+        f"{len(sh_haps)} haps (positions "
+        f"{sh_on[4][1].tolist()}), sharing on and off: equal, and on == off")
 
     # ---- phase 3: SW golden through the entry point -----------------------
     sw_rows = load_golden("sw_golden.jsonl")
@@ -221,26 +302,28 @@ def main() -> int:
     sw_t, sw_q = sw_pairs(21, 10_000, (150, 150), (150, 150))
     long_t, long_q = sw_pairs(22, 64, (8000, 8000), (2000, 2000))
     regions = [engine_region(100 + k) for k in range(8)]
+    # a region the work estimate sends to the per-pair product kernel
+    small = engine_region(108, n_reads=32)
+    for rs, hs, want_shared in [(*r, True) for r in regions] + [(*small, False)]:
+        if use_shared_kernel([len(r["bases"]) for r in rs], hs) != want_shared:
+            raise AssertionError(f"{len(rs)} x {len(hs)}: shared mode should "
+                                 f"be {want_shared}")
 
-    sw_cuda.sw_banded.launches = 0
-    ph.pairhmm_banded_f32.launches = 0
-    ph.pairhmm_banded_f64.launches = 0
-    t0 = time.perf_counter()
-    sw_out = aligner.align_batch(sw_t, sw_q, p_std, soft)
-    t_sw = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    long_out = aligner.align_batch(long_t, long_q, p_std, soft)
-    t_long = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    eng_out = [eng.compute_likelihoods(r, h) for r, h in regions]
-    t_eng = time.perf_counter() - t0
-    launches = {"sw_banded": sw_cuda.sw_banded.launches,
-                "pairhmm_banded_f32": ph.pairhmm_banded_f32.launches,
-                "pairhmm_banded_f64": ph.pairhmm_banded_f64.launches}
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    (sw_out, long_out), sw_n, t_sw = drive(lambda: (
+        aligner.align_batch(sw_t, sw_q, p_std, soft),
+        aligner.align_batch(long_t, long_q, p_std, soft)))
+    (eng_out, small_out), eng_n, t_eng = drive(lambda: (
+        [eng.compute_likelihoods(r, h) for r, h in regions],
+        eng.compute_likelihoods(*small)))
+    for name, n, want in (("SW", sw_n, ["sw_banded"]),
+                          ("engine", eng_n, ["pairhmm_banded_f32",
+                                             "pairhmm_banded_f64",
+                                             "pairhmm_shared_f32"])):
+        if min(n[k] for k in want) < 1:
+            raise AssertionError(f"a kernel of the {name} path never "
+                                 f"launched: {n}")
 
-    # what came out is right: shapes, values, and a sample held to the
+    # what came out is right: shapes, values, and samples held to the
     # port's plain torch path on the CPU (the goldens above hold both to
     # the reference), log10 within 1e-5
     assert len(sw_out) == len(sw_t) and len(long_out) == len(long_t)
@@ -257,16 +340,21 @@ def main() -> int:
     picks = [(1, 0), (2, 5), (0, 3), (16, 11), (77, 6), (32, 2)]
     want = pair_likelihoods(reads0, haps0, picks, "cpu")
     got = np.array([eng_out[0][ri, hi] for ri, hi in picks])
-    same = (got == want) | (np.abs(got - want) < 1e-5)
-    if not same.all():
+    if not (np.abs(got - want) < 1e-5).all():
         raise AssertionError(f"engine sample {picks}: {got} vs {want}")
+    small_cpu = PairHmmEngine(device="cpu").compute_likelihoods(*small)
+    small_err = float(np.abs(small_out - small_cpu).max())
+    if small_err >= 1e-5:
+        raise AssertionError(f"product-mode region vs the CPU: {small_err}")
     n_resc = sum(r % 16 == 0 for r, _ in picks)     # the random reads
     n_eng = sum(o.size for o in eng_out)
-    log(f"[5 main path] launches {launches}; first run: SW {len(sw_t)} x "
-        f"150 bp {t_sw:.3f} s, SW {len(long_t)} x 8000x2000 {t_long:.3f} s, "
-        f"engine {len(regions)} regions 512x12 {t_eng:.3f} s; {len(sample)} SW "
-        f"and {len(picks)} engine pairs ({n_resc} from the random tail) equal "
-        f"the plain path on the CPU")
+    log(f"[5 main path] launches: SW path {sw_n}; engine path {eng_n}; first "
+        f"run: SW {len(sw_t)} x 150 bp + {len(long_t)} x 8000x2000 "
+        f"{t_sw:.3f} s, engine {len(regions)} regions 512x12 (shared mode) "
+        f"+ 1 region 32x12 (product mode) {t_eng:.3f} s; {len(sample)} SW "
+        f"and {len(picks)} engine pairs ({n_resc} from the random tail) "
+        f"within 1e-5 of the per-pair plain path on the CPU, the product-mode "
+        f"region within {small_err:.2e} of the engine on the CPU")
     # end to end once warm, host clock (results land on the host)
     t0 = time.perf_counter()
     aligner.align_batch(sw_t, sw_q, p_std, soft)
@@ -280,8 +368,25 @@ def main() -> int:
         f"engine {n_eng / t_eng:.1f} pairs/s ({t_eng:.4f} s for "
         f"{len(regions)} regions of 512 reads x 12 haps); card {card}")
 
-    # kernel and plain times at the main path's shapes
-    ms, plain_ms = {}, {}
+    # ---- phase 6: the stream ---------------------------------------------
+    stream_out, st_n, t_st = drive(
+        lambda: list(eng.compute_likelihoods_stream(iter(regions))))
+    if min(st_n["pairhmm_shared_f32"], st_n["pairhmm_banded_f64"]) < 1:
+        raise AssertionError(f"a kernel of the stream never launched: {st_n}")
+    if not all(np.array_equal(a, b) for a, b in zip(stream_out, eng_out)):
+        raise AssertionError("stream != sequential compute_likelihoods")
+    t0 = time.perf_counter()
+    for _ in eng.compute_likelihoods_stream(iter(regions)):
+        pass
+    t_st = time.perf_counter() - t0
+    log(f"[6 stream] launches {st_n}; {len(regions)} regions bit-equal to "
+        f"sequential calls; warm: stream {n_eng / t_st:.1f} pairs/s "
+        f"({t_st:.4f} s), sequential {n_eng / t_eng:.1f} pairs/s "
+        f"({t_eng:.4f} s); card {card}")
+    launches = {k: sw_n[k] + eng_n[k] + st_n[k] for k in kernels}
+
+    # ---- phase 7: kernel and plain times at the main path's shapes --------
+    ms, plain_ms, bounds = {}, {}, {}
     for label, ts, qs, iters, p_warm in (("150x150", sw_t, sw_q, 5, 1),
                                          ("8000x2000", long_t, long_q, 2, 0)):
         args = sw_tensors(ts, qs, dev)
@@ -296,22 +401,28 @@ def main() -> int:
             if e:
                 raise AssertionError(f"SW kernel != plain at {label} "
                                      f"(traceback={tb}): {e}")
+            ez, words = sw_cuda.sw_banded(*args, *SW_PARAMS, **kw)
+            b_ms, b_by = bound(cells * SW_OPS_PER_CELL[tb], "int32",
+                               nbytes(*args, ez, *([words] if tb else [])))
             mode = "traceback" if tb else "score-only"
             log(f"    SW {mode} {len(ts)} x {label}: kernel {k_ms:.3f} ms = "
                 f"{cells / k_ms / 1e6:.2f} GCUPS; plain torch {p_ms:.3f} ms = "
-                f"{cells / p_ms / 1e6:.2f} GCUPS; equal; card {card}")
+                f"{cells / p_ms / 1e6:.2f} GCUPS; bound {b_ms:.4f} ms "
+                f"({b_by}); equal; card {card}")
             if tb and label == "150x150":
                 ms["sw_banded"], plain_ms["sw_banded"] = k_ms, p_ms
+                bounds["sw_banded"] = (b_ms, b_by)
 
     reads0, haps0 = normalize(reads0, haps0)
-    prod = [(r, h) for r in range(512) for h in range(12)]
-    a32 = ph.stage_pairs(reads0, haps0, prod, CTX_F32, dev)
+    small_r, small_h = normalize(*small)
+    a32 = ph.stage_pairs(small_r, small_h,
+                         [(r, h) for r in range(32) for h in range(12)],
+                         CTX_F32, dev)
     tail = [(r, h) for r in range(0, 512, 16) for h in range(12)]
     a64 = ph.stage_pairs(reads0, haps0, tail, CTX_F64, dev)
-    for name, a, pairs, kern in (
-            ("pairhmm_banded_f32", a32, prod, ph.pairhmm_banded_f32),
-            ("pairhmm_banded_f64", a64, tail, ph.pairhmm_banded_f64)):
-        cells = len(pairs) * 151 * 420
+    for name, a, kern in (("pairhmm_banded_f32", a32, ph.pairhmm_banded_f32),
+                          ("pairhmm_banded_f64", a64, ph.pairhmm_banded_f64)):
+        cells = int((a[2][a[6]].long() * a[4][a[7]].long()).sum())
         k_ms = cuda_ms(lambda: kern(*a), 5)
         p_ms = cuda_ms(lambda: ph.forward_plain(*a), 1)
         e = compare_pairhmm(a, f64=name.endswith("f64"))
@@ -319,12 +430,44 @@ def main() -> int:
             raise AssertionError(f"{name} != plain at the region shape: {e}")
         err[name] = max(err[name], e)
         ms[name], plain_ms[name] = k_ms, p_ms
-        log(f"    {name} {len(pairs)} pairs 151x420: kernel {k_ms:.3f} ms = "
+        bounds[name] = bound(cells * FLOPS_PER_CELL,
+                             "f64" if name.endswith("f64") else "f32",
+                             nbytes(*a) + a[6].numel() * a[0].element_size())
+        log(f"    {name} {len(a[6])} pairs 151x420: kernel {k_ms:.3f} ms = "
             f"{cells / k_ms / 1e6:.2f} GCUPS; plain torch {p_ms:.3f} ms = "
-            f"{cells / p_ms / 1e6:.2f} GCUPS; equal; card {card}")
+            f"{cells / p_ms / 1e6:.2f} GCUPS; bound {bounds[name][0]:.4f} ms "
+            f"({bounds[name][1]}); equal; card {card}")
 
-    if "jax" in sys.modules:
-        raise AssertionError("the port's main path imported jax")
+    a_sh = ph.stage_shared(reads0, haps0, dev)
+    k_ms = cuda_ms(lambda: ph.pairhmm_shared_f32(*a_sh), 5)
+    p_ms = cuda_ms(lambda: shared_forward_plain(*a_sh), 1, warmup=0)
+    got, want = ph.pairhmm_shared_f32(*a_sh), shared_forward_plain(*a_sh)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("shared kernel != plain at the region shape")
+    stream_cols = int(a_sh[4][0, -1] + a_sh[4][3, -1] - 31)
+    swept = int(a_sh[2].long().sum()) * stream_cols
+    product = sum(len(r["bases"]) for r in reads0) * sum(map(len, haps0))
+    ms["pairhmm_shared_f32"], plain_ms["pairhmm_shared_f32"] = k_ms, p_ms
+    bounds["pairhmm_shared_f32"] = bound(
+        swept * FLOPS_PER_CELL, "f32",
+        nbytes(*a_sh[:5]) + got.numel() * got.element_size())
+    a32_big = ph.stage_pairs(reads0, haps0,
+                             [(r, h) for r in range(512) for h in range(12)],
+                             CTX_F32, dev)
+    big_ms = cuda_ms(lambda: ph.pairhmm_banded_f32(*a32_big), 5)
+    log(f"    pairhmm_shared_f32 512 reads x 12 haps (stream of {stream_cols} "
+        f"of {sum(map(len, haps0))} columns): kernel {k_ms:.3f} ms = "
+        f"{product / k_ms / 1e6:.2f} GCUPS over the product's {product} cells, "
+        f"{swept / k_ms / 1e6:.2f} over the {swept} swept cells; plain torch "
+        f"{p_ms:.3f} ms; bound {bounds['pairhmm_shared_f32'][0]:.4f} ms "
+        f"({bounds['pairhmm_shared_f32'][1]}); equal; the per-pair f32 kernel "
+        f"over the same product {big_ms:.3f} ms; occupancy 4 warps of 64 a "
+        f"SM (one warp a read); card {card}")
+
+    if any(m == "jax" or m.startswith(("jax.", "mgl_tpu."))
+           or m == "mgl_tpu" for m in sys.modules):
+        raise AssertionError("the port's main path imported jax or mgl_tpu")
     replaces = {
         "sw_banded": ("mgl_tpu_torch/csrc/sw_banded.cu",
                       "mgl_tpu/kernels/sw_pallas.py:252"),
@@ -332,11 +475,16 @@ def main() -> int:
                                "mgl_tpu/kernels/pairhmm_pallas.py:175"),
         "pairhmm_banded_f64": ("mgl_tpu_torch/csrc/pairhmm_banded.cu",
                                "mgl_tpu/kernels/pairhmm_xf_pallas.py:61"),
+        "pairhmm_shared_f32": ("mgl_tpu_torch/csrc/pairhmm_shared.cu",
+                               "mgl_tpu/kernels/pairhmm_pallas.py:611"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": err[name],
-         "ms": ms[name], "plain_ms": plain_ms[name]}
+         "ms": ms[name], "plain_ms": plain_ms[name],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         # no PyTorch call computes a banded pair-HMM or SW recurrence
+         "library_ms": None}
         for name, (src, rep) in replaces.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

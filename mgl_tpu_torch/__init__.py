@@ -12,7 +12,8 @@ counterpart in ``csrc/`` and a plain torch version beside its wrapper:
 
 ``device="cuda"`` runs the kernels and raises when no card is present;
 ``device="cpu"`` runs the plain versions.  This package imports torch and
-the jax-free host modules of ``mgl_tpu``, never jax.
+never jax or anything of ``mgl_tpu``: it keeps its own copies of the host
+modules it needs (``core``, ``batch.bucketing``, ``native``).
 """
 
 __version__ = "0.1.0"

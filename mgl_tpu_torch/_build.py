@@ -1,13 +1,15 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host library.
 
 Every ``csrc/*.cu`` is compiled by ``nvcc`` into one shared library with a
-plain C interface, loaded with ``ctypes``.  The library goes to
-``build/mgl_tpu_torch/`` at the root of the checkout (git-ignored) under a
-name that carries the hash of the sources and flags, so an edit to any
-source rebuilds it at its next use and an unchanged tree reuses it.
+plain C interface, loaded with ``ctypes``; every ``csrc/host/*.cpp`` (the
+host CIGAR decoder) is compiled by ``g++`` into a second one.  Each goes
+to ``build/mgl_tpu_torch/`` at the root of the checkout (git-ignored)
+under a name that carries the hash of its sources and flags, so an edit
+to any source rebuilds it at its next use and an unchanged tree reuses it.
 
 Nothing is compiled when this module is imported: :func:`load_library`
-builds at the first kernel launch.
+builds at the first kernel launch, :func:`load_host_library` at the first
+CIGAR decode.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# no -march=native: the library must load on any x86-64 host it is built on
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +43,13 @@ _ENTRIES = {
     "mgl_sw_banded": [_P] * 4 + [_I] * 12 + [_P] * 4,
     "mgl_pairhmm_banded_f32": [_P] * 8 + [_I] * 4 + [_P] * 3,
     "mgl_pairhmm_banded_f64": [_P] * 8 + [_I] * 4 + [_P] * 3,
+    "mgl_pairhmm_shared_f32": [_P] * 5 + [_I] * 4 + [ctypes.c_float]
+                              + [_P] * 3,
+}
+_I64 = ctypes.c_int64
+_HOST_ENTRIES = {
+    "cigar_decode_batch_banded": [_I, _P, _I64, _I64, _P, _P, _I, _P, _P, _P,
+                                  _P, _P, _I, _P, _I, _I, _I, _I64],
 }
 
 
@@ -46,17 +57,30 @@ def sources() -> list[pathlib.Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def source_hash() -> str:
+def host_sources() -> list[pathlib.Path]:
+    return sorted((CSRC / "host").glob("*.cpp"))
+
+
+def _hash(paths: list[pathlib.Path], flags: tuple[str, ...]) -> str:
     h = hashlib.sha256()
-    for path in sources():
+    for path in paths:
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
+
+
+def source_hash() -> str:
+    return _hash(sources(), NVCC_FLAGS)
 
 
 def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libmgl_tpu_torch-{source_hash()}.so"
+
+
+def host_library_path() -> pathlib.Path:
+    return BUILD_DIR / (f"libmgl_tpu_torch_host-"
+                        f"{_hash(host_sources(), HOST_FLAGS)}.so")
 
 
 def _nvcc() -> str:
@@ -73,19 +97,35 @@ def _nvcc() -> str:
     return found
 
 
-def build(so: pathlib.Path) -> None:
-    """Compile every csrc/*.cu into ``so``; nvcc's report (registers,
-    spills) goes to ``so`` with the suffix ``.log``."""
+def _compile(compiler: str, flags: tuple[str, ...],
+             srcs: list[pathlib.Path], so: pathlib.Path) -> None:
+    """Compile ``srcs`` into ``so``; the compiler's report (for nvcc:
+    registers, spills) goes to ``so`` with the suffix ``.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
+    cmd = [compiler, *flags, "-o", str(tmp), *map(str, srcs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"{pathlib.Path(compiler).name} failed "
+                           f"({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, so)   # atomic: a concurrent loader sees all or nothing
+
+
+def build(so: pathlib.Path) -> None:
+    """Compile every csrc/*.cu into ``so`` with nvcc."""
+    _compile(_nvcc(), NVCC_FLAGS, [p for p in sources() if p.suffix == ".cu"],
+             so)
+
+
+def _bind(so: pathlib.Path, entries: dict, restype) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in entries.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
 
 
 @functools.lru_cache(maxsize=1)
@@ -94,14 +134,25 @@ def load_library() -> ctypes.CDLL:
     so = library_path()
     if not so.exists():
         build(so)
-    lib = ctypes.CDLL(str(so))
-    for name, argtypes in _ENTRIES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    lib = _bind(so, _ENTRIES, ctypes.c_int)
     lib.mgl_error_string.argtypes = [ctypes.c_int]
     lib.mgl_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def load_host_library() -> ctypes.CDLL:
+    """The host library (CIGAR decoder), built with g++ first if its
+    sources changed.  Raises if it cannot be built or loaded: there is no
+    Python fallback."""
+    so = host_library_path()
+    if not so.exists():
+        compiler = shutil.which("g++") or shutil.which("c++")
+        if compiler is None:
+            raise RuntimeError("no C++ compiler (g++) to build the host "
+                               "CIGAR decoder")
+        _compile(compiler, HOST_FLAGS, host_sources(), so)
+    return _bind(so, _HOST_ENTRIES, None)
 
 
 def check_launch(lib: ctypes.CDLL, code: int, name: str) -> None:

@@ -6,7 +6,8 @@ Counterparts of ``mgl_tpu.api``, with the same signatures plus
 * :class:`SmithWatermanAligner` - MicrosoftSmithWaterman.align: (ref, alt,
   params, strategy) -> (cigar, offset), and the batched ``align_batch``;
 * :class:`PairHmmEngine` - MicrosoftPairHmm.computeLikelihoods: reads x
-  haps -> log10 likelihood matrix with the f32 -> f64 rescue cascade.
+  haps -> log10 likelihood matrix with the f32 -> f64 rescue cascade, and
+  ``compute_likelihoods_stream``, the pipelined form over many regions.
 
 On a CUDA device only the hand-written kernels run; on ``"cpu"`` only
 their plain torch versions do.  Inputs are validated here, since the
@@ -15,13 +16,14 @@ kernels assume non-empty sequences.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import numpy as np
 import torch
 
-from mgl_tpu.batch.bucketing import bucket_pairs
-from mgl_tpu.core.params import OverhangStrategy, SWParameters
+from mgl_tpu_torch.batch.bucketing import bucket_pairs
+from mgl_tpu_torch.core.params import OverhangStrategy, SWParameters
 from mgl_tpu_torch.device import resolve_device
 
 __all__ = [
@@ -82,6 +84,25 @@ class SmithWatermanAligner:
         return results  # type: ignore[return-value]
 
 
+def _checked_reads(reads: list[dict]) -> list[dict]:
+    """Reads as dicts of uint8 arrays, each quality track as long as the
+    read's bases."""
+    checked = []
+    for rd in reads:
+        bases = _as_u8(rd["bases"])
+        n = len(bases)
+        r = {"bases": bases}
+        for k in ("q", "i", "d", "c"):
+            a = np.asarray(rd[k], dtype=np.uint8)
+            if a.shape != (n,):
+                raise ValueError(
+                    f"quality track '{k}' length {a.shape} != read "
+                    f"length {n}")
+            r[k] = a
+        checked.append(r)
+    return checked
+
+
 class PairHmmEngine:
     """PairHMM likelihood engine with the reference's precision cascade.
 
@@ -102,26 +123,43 @@ class PairHmmEngine:
         likelihood matrix (MicrosoftPairHmm.java:104-111 layout)."""
         from mgl_tpu_torch.ops.pairhmm import compute_likelihoods
 
-        checked = []
-        for rd in reads:
-            bases = _as_u8(rd["bases"])
-            n = len(bases)
-            r = {"bases": bases}
-            for k in ("q", "i", "d", "c"):
-                a = np.asarray(rd[k], dtype=np.uint8)
-                if a.shape != (n,):
-                    raise ValueError(
-                        f"quality track '{k}' length {a.shape} != read "
-                        f"length {n}")
-                r[k] = a
-            checked.append(r)
-        return compute_likelihoods(checked, [_as_u8(h) for h in haps],
-                                   self.device)
+        return compute_likelihoods(_checked_reads(reads),
+                                   [_as_u8(h) for h in haps], self.device)
 
     def compute_likelihoods_stream(self, batches, depth: int = 2):
-        """Pipelined likelihoods over a stream of batches: not ported yet."""
-        raise NotImplementedError(
-            "compute_likelihoods_stream is not ported to mgl_tpu_torch yet")
+        """Pipelined likelihoods over a stream of (reads, haps) batches -
+        GATK's call pattern, one computeLikelihoods per assembly region
+        (mgl_tpu/api/__init__.py:203).
+
+        Batch k+1's host packing and kernel dispatch run while the card
+        still works on batch k.  Three stages, each one batch behind the
+        one before: [dispatch f32] -> [fetch f32 + dispatch rescue] ->
+        [fetch rescue + emit]; ``depth`` batches wait in the first.
+        Single-threaded: the dispatch/finalize split of
+        :func:`mgl_tpu_torch.ops.pairhmm.dispatch_likelihoods` does the
+        overlapping.  Yields (R, H) matrices in input order, bit-identical
+        to sequential :meth:`compute_likelihoods` calls."""
+        depth = max(depth, 1)
+        s1: collections.deque = collections.deque()
+        s2: collections.deque = collections.deque()
+        for reads, haps in batches:
+            s1.append(self._dispatch(reads, haps))
+            if len(s1) > depth:
+                s2.append(s1.popleft()())
+            if len(s2) > 1:
+                yield s2.popleft()()
+        while s1:
+            s2.append(s1.popleft()())
+            if len(s2) > 1:
+                yield s2.popleft()()
+        while s2:
+            yield s2.popleft()()
+
+    def _dispatch(self, reads: list[dict], haps: list):
+        from mgl_tpu_torch.ops.pairhmm import dispatch_likelihoods
+
+        return dispatch_likelihoods(_checked_reads(reads),
+                                    [_as_u8(h) for h in haps], self.device)
 
     def done(self) -> None:  # parity with PairHMMNativeBinding.done()
         pass

@@ -18,7 +18,8 @@
 //   register and stores one 32-bit word every 8 steps, so a warp stores
 //   128 contiguous bytes.  Layout per pair (G, 32) with G = NB * WPB:
 //   cell (i, j) -> word (i-1)/32 * WPB + (j-1+s)/8, lane s = (i-1)%32,
-//   nibble (j-1+s)%8 - what mgl_tpu.native.cigar_decode_bulk_banded reads.
+//   nibble (j-1+s)%8 - what the host decoder (csrc/host/cigar_decode.cpp)
+//   reads.
 // * ScoreMax: the last-column best is kept per lane (rows ascend within a
 //   lane, so '>=' keeps the last row) and reduced over the warp on the
 //   key (value, row); the last row lives in one lane, which scans it in

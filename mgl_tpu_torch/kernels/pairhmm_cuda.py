@@ -1,13 +1,15 @@
-"""Banded PairHMM kernel wrappers (f32 main pass, f64 rescue) and their
-host staging.
+"""PairHMM kernel wrappers (per-pair f32 and f64, shared-hap-set f32) and
+their host staging.
 
 :func:`pairhmm_banded_f32` launches ``csrc/pairhmm_banded.cu`` in float,
 the counterpart of ``mgl_tpu/kernels/pairhmm_pallas.py:
 _pairhmm_banded_kernel``; :func:`pairhmm_banded_f64` launches it in
 double, the counterpart of ``pairhmm_xf_pallas.py:_pairhmm_banded_xf_
-kernel``.  On CPU tensors both run the plain torch forward
-(``mgl_tpu_torch.ops.pairhmm.forward_plain``).  The kernel source says
-what bounds it on the card.
+kernel``; :func:`pairhmm_shared_f32` launches ``csrc/pairhmm_shared.cu``,
+the counterpart of ``pairhmm_pallas.py:_pairhmm_shared_kernel``.  On CPU
+tensors each runs its plain torch version (``mgl_tpu_torch.ops.pairhmm.
+forward_plain`` / ``shared_forward_plain``).  The kernel sources say what
+bounds them on the card.
 
 The host ships raw uint8 quality tracks and bases; the transition and
 emission planes are built on the device by table gathers
@@ -17,15 +19,19 @@ _read_planes_device``), which are plain torch ops, not a kernel.
 
 from __future__ import annotations
 
+import ctypes
+from typing import Callable
+
 import numpy as np
 import torch
 
 from mgl_tpu_torch import _build
-from mgl_tpu_torch.ops.pairhmm import N_PLANES, forward_plain
-from mgl_tpu_torch.tables import (BASE_ENC, CTX_F64, QualityContext,
+from mgl_tpu_torch.ops.pairhmm import (BAND, N_PLANES,
+                                       compute_haplotype_similarities,
+                                       forward_plain, shared_forward_plain)
+from mgl_tpu_torch.tables import (BASE_ENC, CTX_F32, CTX_F64, QualityContext,
                                   context_tables)
 
-BAND = 32
 _TRACKS = ("q", "i", "d", "c", "bases")
 
 
@@ -103,8 +109,71 @@ def pairhmm_banded_f64(planes, rchar, rslen, haps, haplen, y_init, ridx,
     return out
 
 
+def pairhmm_shared_f32(planes, rchar, rslen, hstream, segtab,
+                       y_shared: float) -> torch.Tensor:
+    """(n_reads, n_haps) float32 forward scores of every read against every
+    hap of one hap set, scaled by ``y_shared`` = 2^120 / COLS_MAX (the
+    caller rescales by COLS_MAX / haplen).  ``planes``, ``rchar``,
+    ``rslen`` as :func:`pairhmm_banded_f32` in CTX_F32; ``hstream`` (S+34,)
+    int32 one-hot distinct-suffix stream and ``segtab`` (5, n_haps) int32
+    as :func:`segment_table` builds them (not checked on the card: that
+    would synchronise)."""
+    n_r, _, rows = planes.shape
+    n_h = segtab.shape[1]
+    cols = hstream.shape[0]
+    dev = planes.device
+    _check("planes", planes, torch.float32, (n_r, N_PLANES, rows), dev)
+    _check("rchar", rchar, torch.int32, (n_r, rows), dev)
+    _check("rslen", rslen, torch.int32, (n_r,), dev)
+    _check("hstream", hstream, torch.int32, (cols,), dev)
+    _check("segtab", segtab, torch.int32, (5, n_h), dev)
+    if (rows - 2) % BAND:
+        raise ValueError(f"planes need 32k + 2 rows, got {rows}")
+    if dev.type == "cpu":
+        return shared_forward_plain(planes, rchar, rslen, hstream, segtab,
+                                    y_shared)
+    if dev.type != "cuda":
+        raise ValueError(f"pairhmm kernels run on cuda or cpu, not {dev}")
+    if n_r == 0 or n_h == 0:
+        raise ValueError(f"the shared kernel needs reads and haps, got "
+                         f"{n_r} reads and {n_h} haps")
+    args = [x.contiguous() for x in (planes, rchar, rslen, hstream, segtab)]
+    out = torch.zeros((n_r, n_h), dtype=torch.float32, device=dev)
+    # the (U, W) row that crosses bands, one slot per stream column
+    carry = torch.zeros((n_r, 2, cols), dtype=torch.float32, device=dev)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        code = lib.mgl_pairhmm_shared_f32(
+            *(a.data_ptr() for a in args), n_r, rows, n_h, cols,
+            ctypes.c_float(y_shared), carry.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(lib, code, "mgl_pairhmm_shared_f32")
+    pairhmm_shared_f32.launches += 1
+    return out
+
+
 pairhmm_banded_f32.launches = 0
 pairhmm_banded_f64.launches = 0
+pairhmm_shared_f32.launches = 0
+
+
+def to_host(t: torch.Tensor) -> Callable[[], np.ndarray]:
+    """Start the copy of ``t`` to the host and return its fetch.  On the
+    card: a ``non_blocking`` copy into a pinned buffer on the current
+    stream, guarded by a CUDA event that the fetch waits on; on the CPU
+    the fetch returns ``t`` as it is."""
+    if t.device.type != "cuda":
+        return t.numpy
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+
+    def fetch() -> np.ndarray:
+        done.synchronize()
+        return host.numpy()
+
+    return fetch
 
 
 def stack_tracks(reads: list[dict]) -> tuple[np.ndarray, ...]:
@@ -152,6 +221,24 @@ def read_planes(q, i, d, c, bases, rslen, tables: dict, rows: int):
     return planes, rchar
 
 
+def _to_dev(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def stage_reads(reads: list[dict], ctx: QualityContext, device
+                ) -> tuple[torch.Tensor, ...]:
+    """(planes, rchar, rslen) of ``reads`` in ``ctx``'s precision: raw
+    uint8 tracks ship to ``device`` and the planes are gathered there,
+    with 32k + 2 rows."""
+    q, i, d, c, bases, rlens = stack_tracks(reads)
+    rows = (int(rlens.max()) + BAND - 1) // BAND * BAND + 2
+    rslen = _to_dev(rlens, device)
+    planes, rchar = read_planes(*(_to_dev(a, device)
+                                  for a in (q, i, d, c, bases)),
+                                rslen, context_tables(ctx, device), rows)
+    return planes, rchar, rslen
+
+
 def stage_pairs(reads: list[dict], haps: list[np.ndarray],
                 pairs: list[tuple[int, int]], ctx: QualityContext, device
                 ) -> tuple[torch.Tensor, ...]:
@@ -162,13 +249,8 @@ def stage_pairs(reads: list[dict], haps: list[np.ndarray],
     pi = np.asarray(pairs, np.int64).reshape(-1, 2)
     ur, ridx = np.unique(pi[:, 0], return_inverse=True)
     uh, hidx = np.unique(pi[:, 1], return_inverse=True)
-    to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    q, i, d, c, bases, rlens = stack_tracks([reads[k] for k in ur])
-    rows = (int(rlens.max()) + BAND - 1) // BAND * BAND + 2
-    rslen = to_dev(rlens)
-    planes, rchar = read_planes(*(to_dev(a) for a in (q, i, d, c, bases)),
-                                rslen, context_tables(ctx, device), rows)
+    to_dev = lambda a: _to_dev(a, device)
+    planes, rchar, rslen = stage_reads([reads[k] for k in ur], ctx, device)
 
     hlens = np.fromiter((len(haps[k]) for k in uh), np.int32, len(uh))
     hp = np.zeros((len(uh), int(hlens.max())), np.int32)
@@ -190,3 +272,62 @@ def scores(reads: list[dict], haps: list[np.ndarray],
     and haps are already normalized (BASE_NORM)."""
     kernel = pairhmm_banded_f64 if ctx is CTX_F64 else pairhmm_banded_f32
     return kernel(*stage_pairs(reads, haps, pairs, ctx, device))
+
+
+def segment_table(haps: list[np.ndarray], positions: np.ndarray
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """The shared kernel's hap input (pairhmm_pallas.py:923-947): the
+    (S + 34,) int32 one-hot stream of each hap's distinct suffix (hap j
+    from its shared-prefix position pos_j on; S in all), zero-padded for
+    the sweep's look-ahead past the last segment, and the (5, n_haps)
+    int32 segment table: stream base, pos_j, hap length, sweep steps
+    T_j = len_j - pos_j + 31, and the checkpoint step pos_{j+1} - pos_j
+    (-1 where hap j+1 starts afresh)."""
+    n_h = len(haps)
+    seg_len = [len(h) - int(p) for h, p in zip(haps, positions)]
+    base = np.concatenate([[0], np.cumsum(seg_len)]).astype(np.int64)
+    hstream = np.zeros(int(base[-1]) + BAND + 2, np.int32)
+    segtab = np.full((5, n_h), -1, np.int32)
+    for j, h in enumerate(haps):
+        p = int(positions[j])
+        hstream[base[j]:base[j + 1]] = BASE_ENC[np.asarray(h, np.uint8)[p:]]
+        segtab[:4, j] = base[j], p, len(h), seg_len[j] + BAND - 1
+        if j + 1 < n_h and positions[j + 1] > 0:
+            segtab[4, j] = int(positions[j + 1]) - p
+    return hstream, segtab
+
+
+def stage_shared(reads: list[dict], haps: list[np.ndarray], device
+                 ) -> tuple:
+    """The arguments of :func:`pairhmm_shared_f32` for every read against
+    the hap set (pairhmm_pallas.py:893 forward_scores_shared): read planes
+    in CTX_F32, the stream and segment table of the haps' shared
+    prefixes, and y_shared = float32(2^120) / float32(COLS_MAX)
+    (:949).  Reads' bases and haps are already normalized (BASE_NORM)."""
+    positions, _, cols_max = compute_haplotype_similarities(haps)
+    hstream, segtab = segment_table(haps, positions)
+    y_shared = float(np.float32(CTX_F32.initial_constant)
+                     / np.float32(cols_max))
+    return (*stage_reads(reads, CTX_F32, device), _to_dev(hstream, device),
+            _to_dev(segtab, device), y_shared)
+
+
+def rescale_shared(raw: np.ndarray, haps: list[np.ndarray]) -> np.ndarray:
+    """(n_reads, n_haps) float64 scores scaled by 2^120 / haplen from the
+    shared kernel's raw float32 scores: raw * COLS_MAX / haplen in float64,
+    with float32 factors as in the reference (compute_prob_avxf.cc:1086,
+    pairhmm_pallas.py:971-975)."""
+    lens = np.array([np.float32(len(h)) for h in haps], np.float64)
+    cols_max = float(np.float32(max(len(h) for h in haps)))
+    return raw.astype(np.float64) * cols_max / lens[None, :]
+
+
+def shared_scores(reads: list[dict], haps: list[np.ndarray], device
+                  ) -> Callable[[], np.ndarray]:
+    """Dispatch the shared-hap-set kernel over reads x haps and start the
+    copy of its scores to the host; the returned fetch yields the
+    (n_reads, n_haps) float64 scores scaled by 2^120 / haplen (the avxf
+    variant of the product's scores).  Reads' bases and haps are already
+    normalized (BASE_NORM)."""
+    host = to_host(pairhmm_shared_f32(*stage_shared(reads, haps, device)))
+    return lambda: rescale_shared(host(), haps)

@@ -6,7 +6,7 @@ runs its plain torch version (``mgl_tpu_torch.ops.sw.sw_banded_plain``)
 on CPU tensors.  The kernel source says what bounds it on the card.
 :func:`align_batch_banded` is the port of ``sw_pallas.py:1101``: pack a
 bucket, run the kernel in traceback mode, decode CIGARs on the host with
-the native banded decoder.
+the port's banded decoder (``mgl_tpu_torch.native``).
 """
 
 from __future__ import annotations
@@ -14,8 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mgl_tpu.core.params import OverhangStrategy, SWParameters
 from mgl_tpu_torch import _build
+from mgl_tpu_torch.core.params import OverhangStrategy, SWParameters
+from mgl_tpu_torch.native import cigar_decode_bulk_banded
 from mgl_tpu_torch.ops.sw import BAND, EZ_KEYS, banded_layout, sw_banded_plain
 
 
@@ -103,24 +104,17 @@ def align_batch_banded(targets: list[bytes], queries: list[bytes],
 
 
 def host_decoder_ready() -> bool:
-    """Whether the native host library that decodes CIGARs is loaded."""
-    from mgl_tpu.native import get_lib
-
-    return get_lib() is not None
+    """Whether the port's host library that decodes CIGARs builds and
+    loads (it raises if not)."""
+    return _build.load_host_library() is not None
 
 
 def decode_cigars(ez: np.ndarray, words: np.ndarray, tlen: np.ndarray,
                   qlen: np.ndarray, strategy: OverhangStrategy,
                   words_per_band: int) -> list[tuple[str, int]]:
     """Host CIGAR decode of the kernel's outputs - ez (6, B), words
-    (B, G, 32) int32 in the per-pair banded layout - by the native banded
-    decoder, which replays the reference's run-length walk (sw.cpp)."""
-    from mgl_tpu.native import cigar_decode_bulk_banded
-
-    out = cigar_decode_bulk_banded(
+    (B, G, 32) int32 in the per-pair banded layout - by the port's banded
+    host decoder, which replays the reference's run-length walk (sw.cpp)."""
+    return cigar_decode_bulk_banded(
         words.view(np.uint32), dict(zip(EZ_KEYS, ez.astype(np.int64))),
         tlen, qlen, int(strategy), BAND, words_per_band)
-    if out is None:
-        raise RuntimeError("mgl_tpu.native is unavailable (g++ build failed "
-                           "or MGL_TPU_NATIVE=0): no CIGAR decoder")
-    return out

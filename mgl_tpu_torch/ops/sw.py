@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from mgl_tpu.core.params import DP_NEG_INF
+from mgl_tpu_torch.core.params import DP_NEG_INF
 
 BAND = 32
 EZ_KEYS = ("mqe", "mqe_t", "max", "max_t", "max_q", "seg_length")
@@ -49,8 +49,8 @@ def sw_banded_plain(tgt: torch.Tensor, qry: torch.Tensor, tlen: torch.Tensor,
                     with_traceback: bool = True):
     """Banded SW outputs for B pairs.  ``tgt`` (B, T) and ``qry`` (B, Q)
     uint8, zero-padded; ``tlen``/``qlen`` (B,) int32, each >= 1.  Scores
-    as :class:`mgl_tpu.core.params.SWParameters` holds them (gap open and
-    extend as positive magnitudes).  Returns (ez, words)."""
+    as :class:`mgl_tpu_torch.core.params.SWParameters` holds them (gap
+    open and extend as positive magnitudes).  Returns (ez, words)."""
     dev = tgt.device
     B, T = tgt.shape
     Q = qry.shape[1]

@@ -4,9 +4,12 @@ shapes ``chip_smoke.py`` drives.
     python -m mgl_tpu_torch.profile_e2e [--repeats 3] [--out FILE]
 
 Workloads: ``SmithWatermanAligner.align_batch`` on 10,000 pairs of 150 bp
-(traceback + host CIGAR decode), and ``PairHmmEngine.compute_likelihoods``
+(traceback + host CIGAR decode); ``PairHmmEngine.compute_likelihoods``
 on 8 GATK-shaped regions of 512 reads x 12 haps (151 x 420 bp, every 16th
-read in the f64 rescue tier).  Each runs once cold, then ``--repeats``
+read in the f64 rescue tier), which take the shared-hap-set kernel; and
+``PairHmmEngine.compute_likelihoods_stream`` over the same 8 regions,
+which overlaps each region's host work with the card's work on the one
+before.  Each runs once cold, then ``--repeats``
 times warm on the host clock, then once more warm under
 ``torch.profiler``.  For that profiled call it prints the wall time, the
 device busy time (the union of the kernel and copy intervals the profiler
@@ -35,12 +38,17 @@ from mgl_tpu_torch.testing import engine_region, sw_pairs
 
 # (module, function name) put under a record_function range of that name
 # (nested ranges count in their parent's total too)
-STAGES = ((api, "bucket_pairs"), (sw_cuda, "align_batch_banded"),
-          (sw_cuda, "pack_sequences"), (sw_cuda, "decode_cigars"),
-          (pairhmm, "_bucketed"), (pairhmm, "normalize"),
-          (pairhmm, "_dedup_haps"), (pairhmm, "bucket_pairs"),
-          (pairhmm_cuda, "stage_pairs"), (pairhmm_cuda, "stack_tracks"),
-          (pairhmm_cuda, "read_planes"))
+STAGES = ((api, "bucket_pairs"), (api, "_checked_reads"),
+          (sw_cuda, "align_batch_banded"), (sw_cuda, "pack_sequences"),
+          (sw_cuda, "decode_cigars"),
+          (pairhmm, "normalize"), (pairhmm, "_dedup_haps"),
+          (pairhmm, "use_shared_kernel"), (pairhmm, "_bucketed_start"),
+          (pairhmm, "bucket_pairs"), (pairhmm, "_finish_start"),
+          (pairhmm_cuda, "stage_shared"),
+          (pairhmm_cuda, "compute_haplotype_similarities"),
+          (pairhmm_cuda, "segment_table"), (pairhmm_cuda, "stage_pairs"),
+          (pairhmm_cuda, "stage_reads"), (pairhmm_cuda, "stack_tracks"),
+          (pairhmm_cuda, "read_planes"), (pairhmm_cuda, "rescale_shared"))
 
 
 def _ranged(name: str, fn):
@@ -149,6 +157,9 @@ def main(argv=None) -> int:
                 len(sw_t), args.repeats),
         profile("engine_8x512x12",
                 lambda: [engine.compute_likelihoods(r, h) for r, h in regions],
+                sum(len(r) * len(h) for r, h in regions), args.repeats),
+        profile("engine_stream_8x512x12",
+                lambda: list(engine.compute_likelihoods_stream(iter(regions))),
                 sum(len(r) * len(h) for r, h in regions), args.repeats)]}
 
     print(f"card: {card} (nvidia-smi name, power.limit)")

@@ -1,9 +1,10 @@
 """PairHMM context tables as device tensors.
 
-The tables themselves are the JAX package's (``mgl_tpu.core.context``,
-bit-exact against the reference); this module only moves them to a torch
-device, for the f32 main pass (``CTX_F32``, 2^120 scaling) and the f64
-rescue (``CTX_F64``, 2^1020 scaling).  The contexts and the rescue gate
+The tables themselves are the port's copy of the JAX package's
+(``mgl_tpu_torch.core.context``, bit-exact against the reference); this
+module only moves them to a torch device, for the f32 main pass
+(``CTX_F32``, 2^120 scaling) and the f64 rescue (``CTX_F64``, 2^1020
+scaling).  The contexts and the rescue gate
 ``MIN_ACCEPTED`` (1e-28) are re-exported from here for the rest of the
 port.  ``SWParameters`` needs no table: the SW kernel takes its four
 scores as scalars.
@@ -16,8 +17,8 @@ import functools
 import numpy as np
 import torch
 
-from mgl_tpu.core.context import (CTX_F32, CTX_F64, MIN_ACCEPTED,
-                                  QualityContext)
+from mgl_tpu_torch.core.context import (CTX_F32, CTX_F64, MIN_ACCEPTED,
+                                        QualityContext)
 
 __all__ = ["BASE_ENC", "CTX_F32", "CTX_F64", "MIN_ACCEPTED",
            "QualityContext", "context_tables"]

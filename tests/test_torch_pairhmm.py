@@ -14,12 +14,13 @@ import pytest
 import torch
 
 from conftest import as_u8, kat_read
-from mgl_tpu.core.context import CTX_F32, CTX_F64, MIN_ACCEPTED
+from mgl_tpu.core import context as jax_ctx
 from mgl_tpu.ops.pairhmm import forward_scores_xla, pack_pairs
 from mgl_tpu_torch.api import PairHmmEngine
 from mgl_tpu_torch.kernels.pairhmm_cuda import scores
 from mgl_tpu_torch.ops.pairhmm import normalize, pair_likelihoods
-from mgl_tpu_torch.tables import context_tables
+from mgl_tpu_torch.tables import (CTX_F32, CTX_F64, MIN_ACCEPTED,
+                                  context_tables)
 from mgl_tpu_torch.testing import golden_read
 
 torch.set_num_threads(1)
@@ -65,7 +66,7 @@ def test_plain_f64_vs_rescue_references(pairhmm_golden):
     for k in range(0, len(rows), 5):
         rd = reads[k]
         s = compute_score(haps[k], rd["bases"], rd["q"], rd["i"], rd["d"],
-                          rd["c"], ctx=CTX_F64)
+                          rd["c"], ctx=jax_ctx.CTX_F64)
         assert abs(got[k] - s) <= 1e-12 * abs(s), k
 
 
@@ -92,6 +93,25 @@ def test_tables_equal_jax_tables():
         for a, b in zip(xf_split(ours.numpy()), xf[name]):
             assert np.array_equal(a, np.asarray(b)), name
     assert (t32["dtype"], t64["dtype"]) == (torch.float32, torch.float64)
+
+
+def test_context_copy_equals_jax_package():
+    """The port's own copy of the quality contexts (mgl_tpu_torch.core.
+    context and its npz) holds the JAX package's arrays and constants bit
+    for bit."""
+    import mgl_tpu_torch.core.context as port_ctx
+
+    for name in ("CTX_F32", "CTX_F64"):
+        ours, theirs = getattr(port_ctx, name), getattr(jax_ctx, name)
+        assert ours.dtype is theirs.dtype
+        for field in ("ph2pr", "match_to_match", "jacobian_log"):
+            a, b = getattr(ours, field), getattr(theirs, field)
+            assert a.dtype == b.dtype and np.array_equal(a, b), (name, field)
+        for field in ("initial_constant", "log10_initial_constant"):
+            a, b = getattr(ours, field), getattr(theirs, field)
+            assert type(a) is type(b) and a == b, (name, field)
+    assert port_ctx.MIN_ACCEPTED == jax_ctx.MIN_ACCEPTED
+    assert port_ctx.MIN_ACCEPTED.dtype == jax_ctx.MIN_ACCEPTED.dtype
 
 
 def test_engine_kat(pairhmm_kat):

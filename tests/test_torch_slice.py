@@ -1,6 +1,6 @@
-"""The mgl_tpu_torch slice end to end: both GATK entry points, the device
-rule, the import rule, and (on a card) each CUDA kernel against its plain
-torch version.
+"""The mgl_tpu_torch slice end to end: both GATK entry points and the
+stream, the device rule, the import rule, the port's host CIGAR decoder,
+and (on a card) each CUDA kernel against its plain torch version.
 
 This file imports no jax, so its ``cuda`` tests also run on a GPU host
 without jax: ``python -m pytest tests/test_torch_slice.py -m cuda``.
@@ -9,6 +9,7 @@ Small shapes throughout: the CPU tests take a few seconds on one thread.
 
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -17,15 +18,18 @@ import pytest
 import torch
 
 from conftest import as_u8, kat_read
-from mgl_tpu.core.params import OverhangStrategy, SWParameters
 from mgl_tpu.ref_impl import sw_scalar
-from mgl_tpu_torch.api import PairHmmEngine, SmithWatermanAligner
+from mgl_tpu_torch.api import (OverhangStrategy, PairHmmEngine,
+                               SmithWatermanAligner, SWParameters)
 from mgl_tpu_torch.kernels import pairhmm_cuda, sw_cuda
-from mgl_tpu_torch.ops.pairhmm import normalize, pair_likelihoods
-from mgl_tpu_torch.ops.sw import banded_layout
+from mgl_tpu_torch.ops.pairhmm import (normalize, pair_likelihoods,
+                                       shared_forward_plain, use_shared_kernel)
+from mgl_tpu_torch.ops.sw import EZ_KEYS, BAND, banded_layout
 from mgl_tpu_torch.tables import CTX_F32, CTX_F64
-from mgl_tpu_torch.testing import (golden_groups, golden_read, sw_pairs,
-                                   sw_tensors, traceback_mismatches)
+from mgl_tpu_torch.testing import (engine_region, golden_groups, golden_read,
+                                   sw_pairs, sw_tensors, traceback_mismatches)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 torch.set_num_threads(1)
 
@@ -104,8 +108,6 @@ def test_api_validation_and_unported_options():
     for kw in ({"use_double": True}, {"fast_path": True}):
         with pytest.raises(NotImplementedError):
             PairHmmEngine(device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        PairHmmEngine(device="cpu").compute_likelihoods_stream(iter(()))
 
 
 @pytest.mark.parametrize("cls", [SmithWatermanAligner, PairHmmEngine])
@@ -122,9 +124,10 @@ def test_cuda_without_a_card_raises(cls, monkeypatch):
 def test_launch_counters_stay_zero_on_cpu(pairhmm_golden):
     """On CPU tensors the wrappers run their plain versions and count no
     kernel launch."""
-    before = (sw_cuda.sw_banded.launches,
-              pairhmm_cuda.pairhmm_banded_f32.launches,
-              pairhmm_cuda.pairhmm_banded_f64.launches)
+    counters = (sw_cuda.sw_banded, pairhmm_cuda.pairhmm_banded_f32,
+                pairhmm_cuda.pairhmm_banded_f64,
+                pairhmm_cuda.pairhmm_shared_f32)
+    before = [k.launches for k in counters]
     SmithWatermanAligner(device="cpu").align(
         b"ACGTACGT", b"ACGAACGT", SWParameters(25, -50, 110, 6),
         OverhangStrategy.SOFTCLIP)
@@ -133,31 +136,81 @@ def test_launch_counters_stay_zero_on_cpu(pairhmm_golden):
     out = PairHmmEngine(device="cpu").compute_likelihoods(
         [golden_read(row)], [as_u8(row["hap"])])
     assert np.isfinite(out).all()
-    after = (sw_cuda.sw_banded.launches,
-             pairhmm_cuda.pairhmm_banded_f32.launches,
-             pairhmm_cuda.pairhmm_banded_f64.launches)
-    assert before == after
+    # and a region in shared mode
+    reads, haps = engine_region(2, 96, 3, 40, 60)
+    assert use_shared_kernel([len(r["bases"]) for r in reads], haps)
+    assert np.isfinite(PairHmmEngine(device="cpu").compute_likelihoods(
+        reads, haps)).all()
+    assert [k.launches for k in counters] == before
+
+
+def test_host_decoder_equals_jax_package_decoder(sw_golden):
+    """The port's CIGAR decoder (its own copy of the C++) gives what
+    mgl_tpu.native.cigar_decode_bulk_banded gives on the same kernel
+    words, for the golden pairs up to 40 bp, all four strategies."""
+    from mgl_tpu.native import cigar_decode_bulk_banded as jax_decode
+    from mgl_tpu_torch.native import cigar_decode_bulk_banded
+
+    _, groups = _sw_cases(sw_golden, 40)
+    n = 0
+    for (m, x, o, e, s), rs in groups.items():
+        p = SWParameters.normalized(m, x, o, e)
+        targets = [r["target"].encode() for r in rs]
+        queries = [r["query"].encode() for r in rs]
+        tg, qr, tl, ql = sw_tensors(targets, queries, "cpu")
+        ez, words = sw_cuda.sw_banded(
+            tg, qr, tl, ql, p.match, p.mismatch, p.gap_open, p.gap_extend,
+            indel_init=bool(s & (OverhangStrategy.INDEL
+                                 | OverhangStrategy.LEADING_INDEL)))
+        args = (words.numpy().view(np.uint32),
+                dict(zip(EZ_KEYS, ez.numpy().astype(np.int64))), tl.numpy(),
+                ql.numpy(), s, BAND, banded_layout(tg.shape[1], qr.shape[1])[1])
+        got = cigar_decode_bulk_banded(*args)
+        assert got == jax_decode(*args)
+        assert got == [(r["cigar_scalar"], r["offset_scalar"]) for r in rs]
+        n += len(rs)
+    assert n >= 40
+
+
+def test_port_imports_nothing_of_the_jax_package():
+    """No module of mgl_tpu_torch, and not chip_smoke.py, imports jax or
+    mgl_tpu (the port keeps its own copies)."""
+    pattern = re.compile(r"^\s*(from|import)\s+(mgl_tpu|jax)(\.|\s|$)",
+                         re.MULTILINE)
+    files = sorted((ROOT / "mgl_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}" for f in files
+           for m in pattern.finditer(f.read_text())]
+    assert not bad, bad
 
 
 def test_slice_never_imports_jax(tmp_path):
-    """Running both entry points of the port leaves jax out of
-    sys.modules (a fresh interpreter, so no other test's import counts)."""
+    """Running both entry points of the port and the stream, in shared and
+    product mode, leaves jax and every mgl_tpu module out of sys.modules
+    (a fresh interpreter, so no other test's import counts)."""
     code = (
         "import sys, numpy as np\n"
         "from mgl_tpu_torch.api import (SmithWatermanAligner, PairHmmEngine,"
         " SWParameters, OverhangStrategy)\n"
+        "from mgl_tpu_torch.testing import engine_region\n"
         "r = SmithWatermanAligner(device='cpu').align(b'ACGTACGT', b'ACGAACGT',"
         " SWParameters(25, -50, 110, 6), OverhangStrategy.SOFTCLIP)\n"
         "q = np.full(6, 30, np.uint8)\n"
-        "o = PairHmmEngine(device='cpu').compute_likelihoods("
+        "eng = PairHmmEngine(device='cpu')\n"
+        "o = eng.compute_likelihoods("
         "[dict(bases=b'ACGTAC', q=q, i=q, d=q, c=q)], [b'TTACGTACTT'])\n"
         "assert np.isfinite(o).all()\n"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules"
-        " if m.startswith('jax'))\n"
+        "batches = [engine_region(2, 96, 3, 40, 60),"
+        " engine_region(3, 4, 3, 40, 60)]\n"
+        "for out in eng.compute_likelihoods_stream(iter(batches)):\n"
+        "    assert np.isfinite(out).all()\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'mgl_tpu')"
+        " or m.startswith(('jax.', 'mgl_tpu.')))\n"
+        "assert not bad, bad\n"
         "print('ok', r.cigar)\n")
-    root = pathlib.Path(__file__).resolve().parents[1]
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
-                          env={**os.environ, "PYTHONPATH": str(root),
+                          env={**os.environ, "PYTHONPATH": str(ROOT),
                                "OMP_NUM_THREADS": "1"},
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -238,3 +291,38 @@ def test_entry_points_on_the_card(cuda, sw_golden, pairhmm_kat):
                            cuda)
     want = np.array([c["expected_log10"] for c in pairhmm_kat])
     assert np.abs(lik - want).max() < 1e-5
+
+
+@pytest.mark.cuda
+def test_shared_kernel_matches_plain(cuda):
+    """The shared-hap-set kernel vs its plain version on the card, bit for
+    bit, with sharing on and off, on reads of 50-160 bp against haps with
+    shared prefixes, a duplicate and a reset."""
+    reads, haps = engine_region(9, 96, 8, 160, 240)
+    reads = [{k: v[:50 + 3 * n % 111] for k, v in rd.items()}
+             for n, rd in enumerate(reads)]
+    haps = haps + [haps[2].copy()]
+    reads, haps = normalize(reads, haps)
+    args = pairhmm_cuda.stage_shared(reads, haps, cuda)
+    hstream, segtab = pairhmm_cuda.segment_table(
+        haps, np.zeros(len(haps), np.int64))
+    noshare = (*args[:3], torch.from_numpy(hstream).to(cuda),
+               torch.from_numpy(segtab).to(cuda), args[5])
+    for a in (args, noshare):
+        got = pairhmm_cuda.pairhmm_shared_f32(*a)
+        want = shared_forward_plain(*a)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_stream_equals_sequential_on_the_card(cuda):
+    """compute_likelihoods_stream on the card, shared and product batches
+    mixed, equals sequential compute_likelihoods calls bit for bit."""
+    batches = [engine_region(s, n, 12) for s, n in ((1, 512), (2, 32),
+                                                     (3, 512))]
+    eng = PairHmmEngine(device=cuda)
+    want = [eng.compute_likelihoods(r, h) for r, h in batches]
+    for depth in (1, 2):
+        got = list(eng.compute_likelihoods_stream(iter(batches), depth=depth))
+        assert all(np.array_equal(g, w) for g, w in zip(got, want))
