@@ -4,13 +4,18 @@
     python3 chip_smoke.py        # from the root of a checkout, one card
 
 The quickest proof that the port still starts on the card.  It builds the
-four CUDA kernels from ``mgl_tpu_torch/csrc`` and the host CIGAR decoder
-from ``csrc/host``, holds each kernel against its plain torch version on
-the card, runs the goldens through both GATK entry points
+seven CUDA kernels (five sources) from ``mgl_tpu_torch/csrc``, one nvcc
+each, all started together, and the host CIGAR decoder from
+``csrc/host``, holds each kernel against its plain torch version on the
+card, runs the goldens through both GATK entry points
 (``SmithWatermanAligner.align_batch``,
 ``PairHmmEngine.compute_likelihoods``), then drives the main path at a
 realistic size - the aligner, the engine in shared and product mode, and
-``PairHmmEngine.compute_likelihoods_stream`` - and times it.  Phases:
+``PairHmmEngine.compute_likelihoods_stream`` - and times it; then the
+plane path, the second design of both recurrences
+(``sw_cuda.align_batch``, ``sw_cuda.sw_plane_scores``,
+``pairhmm_cuda.forward_scores_plane``), against the goldens and the
+banded kernels.  Phases:
 
 0. environment (card, power limit, CUDA, nvcc, the port's host library);
 1. build of the kernels;
@@ -19,7 +24,9 @@ realistic size - the aligner, the engine in shared and product mode, and
 4. PairHMM known answers and golden rows through the cascade;
 5. the main path at a realistic size, with launch counts and times;
 6. the stream over the same regions, bit-equal to sequential calls;
-7. kernel and plain times at the main path's shapes, with bounds.
+7. the plane path: SW goldens, the 150 bp batch and PairHMM regions,
+   bit-equal to the banded kernels, with launch counts;
+8. kernel and plain times at the main path's shapes, with bounds.
 
 Any failed phase raises and the script exits non-zero.  The last line is
 one JSON object naming the device; the line before it lists the kernels
@@ -43,10 +50,15 @@ SW_PARAMS = (25, -50, 110, 6)          # STANDARD_NGS
 PEAK = {"f32": 67e12, "f64": 34e12, "int32": 132 * 64 * 1.98e9,
         "bytes": 3.35e12}
 # operations a cell, counted from the sources: PairHMM 7 multiplies and
-# 4 adds (pairhmm_banded.cu, pairhmm_shared.cu); SW 12 integer ops for
-# the scores and 18 more for the traceback nibble (sw_banded.cu:104-122)
+# 4 adds (pairhmm_banded.cu, pairhmm_shared.cu, pairhmm_plane.cu); SW 12
+# integer ops for the scores and 18 more for the traceback nibble
+# (sw_banded.cu:104-122), the same for the plane kernel's traceback and
+# samples modes; its best-score mode 11 (sw_plane.cu:117-127: two gaps
+# of two subtractions and a maximum, the substitution's compare, select
+# and add, and two maxima)
 FLOPS_PER_CELL = 11
 SW_OPS_PER_CELL = {True: 30, False: 12}
+SW_SCORE_OPS_PER_CELL = 11
 
 
 def log(msg: str) -> None:
@@ -54,8 +66,9 @@ def log(msg: str) -> None:
 
 
 def compare_sw(args, indel_init: bool, with_traceback: bool) -> int:
-    """Kernel vs plain on the card: the largest |ez| difference plus the
-    number of real traceback cells that differ (0 when bit-equal)."""
+    """Banded kernel vs plain on the card: the largest |ez| difference
+    plus the number of real traceback cells that differ (0 when
+    bit-equal)."""
     import torch
 
     from mgl_tpu_torch.kernels.sw_cuda import sw_banded, sw_banded_plain
@@ -73,16 +86,59 @@ def compare_sw(args, indel_init: bool, with_traceback: bool) -> int:
     return err
 
 
-def compare_pairhmm(args, f64: bool) -> float:
+def sw_plane_mode(args, indel_init: bool, mode: str):
+    """(kernel call, plain call, integer ops a cell) of the plane SW in
+    ``mode`` (traceback, samples, scores); each call returns a tuple of
+    output tensors."""
+    from mgl_tpu_torch.kernels import sw_cuda
+    from mgl_tpu_torch.ops.sw import sw_plane_plain, sw_plane_scores_plain
+
+    if mode == "scores":
+        kw = dict(indel_init=indel_init)
+        return (lambda: (sw_cuda.sw_plane_scores(*args, *SW_PARAMS, **kw),),
+                lambda: (sw_plane_scores_plain(*args, *SW_PARAMS, **kw),),
+                SW_SCORE_OPS_PER_CELL)
+    kw = dict(indel_init=indel_init, with_traceback=mode == "traceback")
+    return (lambda: sw_cuda.sw_plane(*args, *SW_PARAMS, **kw),
+            lambda: sw_plane_plain(*args, *SW_PARAMS, **kw),
+            SW_OPS_PER_CELL[mode == "traceback"])
+
+
+def compare_sw_plane(args, indel_init: bool, mode: str) -> int:
+    """Plane kernel vs plain on the card in ``mode``: the largest
+    difference over every output (0 when bit-equal; words outside the real
+    cells are zero in both)."""
+    import torch
+
+    run, run_plain, _ = sw_plane_mode(args, indel_init, mode)
+    got, want = run(), run_plain()
+    torch.cuda.synchronize()
+    return max(int((g.long() - w.long()).abs().max()) for g, w in
+               zip(got, want))
+
+
+def compare_pairhmm(args, kernel) -> float:
+    """A per-pair PairHMM kernel vs the plain forward on the card: the
+    largest |difference| (0.0 when bit-equal)."""
     import torch
 
     from mgl_tpu_torch.kernels import pairhmm_cuda as ph
 
-    kernel = ph.pairhmm_banded_f64 if f64 else ph.pairhmm_banded_f32
     got = kernel(*args)
     want = ph.forward_plain(*args)
     torch.cuda.synchronize()
     return float((got.double() - want.double()).abs().max())
+
+
+def traceback_bytes(targets, queries) -> tuple[int, int]:
+    """Bytes of the traceback words that come back to the host for a batch
+    padded to its maxima: (plane layout, banded layout)."""
+    from mgl_tpu_torch.ops.sw import BAND, banded_layout, plane_words
+
+    T, Q = max(map(len, targets)), max(map(len, queries))
+    nb, wpb = banded_layout(T, Q)
+    return (len(targets) * plane_words(T, Q) * (T + 1) * 4,
+            len(targets) * nb * wpb * BAND * 4)
 
 
 def bound(ops: float, peak: str, n_bytes: float) -> tuple[float, str]:
@@ -108,8 +164,10 @@ def main() -> int:
     from mgl_tpu_torch import _build
     from mgl_tpu_torch.api import (OverhangStrategy, PairHmmEngine,
                                    SmithWatermanAligner, SWParameters)
+    from mgl_tpu_torch.batch.bucketing import bucket_pairs
     from mgl_tpu_torch.kernels import pairhmm_cuda as ph
     from mgl_tpu_torch.kernels import sw_cuda
+    from mgl_tpu_torch.ops.sw import EZ_KEYS, compute_score_max
     from mgl_tpu_torch.ops.pairhmm import (normalize, pair_likelihoods,
                                            shared_forward_plain,
                                            use_shared_kernel)
@@ -121,7 +179,10 @@ def main() -> int:
     kernels = {"sw_banded": sw_cuda.sw_banded,
                "pairhmm_banded_f32": ph.pairhmm_banded_f32,
                "pairhmm_banded_f64": ph.pairhmm_banded_f64,
-               "pairhmm_shared_f32": ph.pairhmm_shared_f32}
+               "pairhmm_shared_f32": ph.pairhmm_shared_f32,
+               "sw_plane": sw_cuda.sw_plane,
+               "sw_plane_scores": sw_cuda.sw_plane_scores,
+               "pairhmm_plane_f32": ph.pairhmm_plane_f32}
 
     def drive(fn):
         """(fn(), launches of each kernel during it, host seconds): the
@@ -173,6 +234,13 @@ def main() -> int:
                 raise AssertionError(f"SW kernel != plain ({strategy.name}, "
                                      f"traceback={tb}): {e}")
             err["sw_banded"] = max(err["sw_banded"], e)
+        for mode in ("traceback", "samples", "scores"):
+            e = compare_sw_plane(args, indel, mode)
+            if e:
+                raise AssertionError(f"SW plane kernel != plain "
+                                     f"({strategy.name}, {mode}): {e}")
+            name = "sw_plane_scores" if mode == "scores" else "sw_plane"
+            err[name] = max(err[name], e)
     kat = load_golden("pairhmm_kat.json")
     kat_reads = [golden_read(c) for c in kat]
     kat_haps = [u8(c["hap"]) for c in kat]
@@ -191,18 +259,19 @@ def main() -> int:
     for reads, haps, pairs in (
             (kat_reads, kat_haps, [(k, k) for k in range(len(kat))]),
             (rnd_reads, rnd_haps, rnd_pairs)):
-        e = compare_pairhmm(ph.stage_pairs(*normalize(reads, haps), pairs,
-                                           CTX_F32, dev), f64=False)
-        if e:
-            raise AssertionError(f"PairHMM f32 kernel != plain: {e}")
-        err["pairhmm_banded_f32"] = max(err["pairhmm_banded_f32"], e)
+        staged = ph.stage_pairs(*normalize(reads, haps), pairs, CTX_F32, dev)
+        for name in ("pairhmm_banded_f32", "pairhmm_plane_f32"):
+            e = compare_pairhmm(staged, kernels[name])
+            if e:
+                raise AssertionError(f"{name} kernel != plain: {e}")
+            err[name] = max(err[name], e)
     golden = load_golden("pairhmm_golden.jsonl")
     g_reads = [golden_read(r) for r in golden]
     g_haps = [u8(r["hap"]) for r in golden]
     gn_reads, gn_haps = normalize(g_reads, g_haps)
     diag = [(k, k) for k in range(len(golden))]
     e = compare_pairhmm(ph.stage_pairs(gn_reads, gn_haps, diag, CTX_F64, dev),
-                        f64=True)
+                        ph.pairhmm_banded_f64)
     if e:
         raise AssertionError(f"PairHMM f64 kernel != plain: {e}")
     err["pairhmm_banded_f64"] = e
@@ -243,9 +312,10 @@ def main() -> int:
     if not torch.equal(*outs):
         raise AssertionError("shared kernel: sharing on != sharing off")
     log(f"[2 kernel==plain, tolerance 0 (bit for bit)] SW {len(targets)} "
-        f"pairs 40-250 bp x 4 strategies x 2 modes: ez and real-cell nibbles "
-        f"equal; PairHMM f32 on {len(kat)} KAT + {len(rnd_pairs)} random "
-        f"ragged pairs: equal; PairHMM f64 on {len(golden)} golden rows: "
+        f"pairs 40-250 bp x 4 strategies: banded x 2 modes, ez and real-cell "
+        f"nibbles equal; plane x 3 modes (traceback, samples, best score), "
+        f"every output equal; PairHMM f32 banded and plane on {len(kat)} KAT "
+        f"+ {len(rnd_pairs)} random ragged pairs: equal; PairHMM f64 on {len(golden)} golden rows: "
         f"equal; shared on {len(sh_reads)} reads of 50-160 bp x "
         f"{len(sh_haps)} haps (positions "
         f"{sh_on[4][1].tolist()}), sharing on and off: equal, and on == off")
@@ -385,7 +455,82 @@ def main() -> int:
         f"({t_eng:.4f} s); card {card}")
     launches = {k: sw_n[k] + eng_n[k] + st_n[k] for k in kernels}
 
-    # ---- phase 7: kernel and plain times at the main path's shapes --------
+    # ---- phase 7: the plane path ------------------------------------------
+    # the second design of both recurrences, through its entry points: the
+    # SW goldens one launch per parameter group, the 150 bp batch over the
+    # aligner's buckets (traceback and best score), and the PairHMM plane
+    # forward over the region's full product and the known answers
+    reads0, haps0 = normalize(reads0, haps0)
+    kat_n = normalize(kat_reads, kat_haps)
+    kat_pairs = [(k, k) for k in range(len(kat))]
+    region_pairs = [(r, h) for r in range(len(reads0))
+                    for h in range(len(haps0))]
+    buckets = bucket_pairs([len(t) for t in sw_t], [len(q) for q in sw_q],
+                           max_batch=aligner.max_batch)
+
+    def plane_path():
+        gold = [(rs, sw_cuda.align_batch(
+            [r["target"].encode() for r in rs],
+            [r["query"].encode() for r in rs],
+            SWParameters.normalized(m, x, o, e), OverhangStrategy(s), dev))
+            for (m, x, o, e, s), rs in groups.items()]
+        cigars, best = [None] * len(sw_t), torch.empty(
+            len(sw_t), dtype=torch.int32, device=dev)
+        for _, idx in buckets:
+            ts, qs = [sw_t[k] for k in idx], [sw_q[k] for k in idx]
+            for k, c in zip(idx, sw_cuda.align_batch(ts, qs, p_std, soft,
+                                                     dev)):
+                cigars[k] = c
+            best[idx] = sw_cuda.sw_plane_scores(*sw_tensors(ts, qs, dev),
+                                                *SW_PARAMS, indel_init=False)
+        return (gold, cigars, best.cpu(),
+                ph.forward_scores_plane(reads0, haps0, region_pairs,
+                                        dev).cpu(),
+                ph.forward_scores_plane(*kat_n, kat_pairs, dev).cpu())
+
+    (gold, pl_cigars, pl_best, pl_region, pl_kat), pl_n, t_pl = drive(
+        plane_path)
+    for name in ("sw_plane", "sw_plane_scores", "pairhmm_plane_f32"):
+        if pl_n[name] < 1:
+            raise AssertionError(f"a kernel of the plane path never "
+                                 f"launched: {pl_n}")
+        launches[name] = pl_n[name]
+    exact = sum((g == (r["cigar_scalar"], r["offset_scalar"]))
+                for rs, got in gold for r, g in zip(rs, got))
+    if exact != len(sw_rows):
+        raise AssertionError(f"SW golden through the plane: {exact}/"
+                             f"{len(sw_rows)} exact")
+    if pl_cigars != [(r.cigar, r.offset) for r in sw_out]:
+        raise AssertionError("plane CIGARs != the banded aligner's")
+    sw_args = sw_tensors(sw_t, sw_q, dev)
+    ez_plane = sw_cuda.sw_plane(*sw_args, *SW_PARAMS, indel_init=False)[0]
+    ez_band = sw_cuda.sw_banded(*sw_args, *SW_PARAMS, indel_init=False,
+                                with_traceback=False)[0]
+    if not (torch.equal(ez_plane, ez_band)
+            and torch.equal(pl_best, ez_band[2].cpu())):
+        raise AssertionError("plane ez or best scores != the banded ez")
+    a32_big = ph.stage_pairs(reads0, haps0, region_pairs, CTX_F32, dev)
+    kat_staged = ph.stage_pairs(*kat_n, kat_pairs, CTX_F32, dev)
+    if not (torch.equal(pl_region, ph.pairhmm_banded_f32(*a32_big).cpu())
+            and torch.equal(pl_kat,
+                            ph.pairhmm_banded_f32(*kat_staged).cpu())):
+        raise AssertionError("PairHMM plane != banded f32 scores")
+    d2h = [traceback_bytes([sw_t[k] for k in idx], [sw_q[k] for k in idx])
+           for _, idx in buckets]
+    d2h_long = traceback_bytes(long_t, long_q)
+    log(f"[7 plane path] launches {pl_n}; {t_pl:.3f} s; SW goldens "
+        f"{exact}/{len(sw_rows)} exact through sw_cuda.align_batch "
+        f"({len(groups)} groups); {len(sw_t)} x 150 bp over {len(buckets)} "
+        f"buckets: CIGARs and offsets equal to the banded aligner's, ez and "
+        f"best scores equal to the banded kernel's; PairHMM plane f32 equal "
+        f"to banded on {len(region_pairs)} region pairs 151x420 and "
+        f"{len(kat_pairs)} KAT pairs (bit for bit); traceback words to the "
+        f"host for the {len(sw_t)} x 150 bp buckets: plane "
+        f"{sum(p for p, _ in d2h)} B, banded {sum(b for _, b in d2h)} B; "
+        f"for {len(long_t)} x 8000x2000: plane {d2h_long[0]} B, banded "
+        f"{d2h_long[1]} B")
+
+    # ---- phase 8: kernel and plain times at the main path's shapes --------
     ms, plain_ms, bounds = {}, {}, {}
     for label, ts, qs, iters, p_warm in (("150x150", sw_t, sw_q, 5, 1),
                                          ("8000x2000", long_t, long_q, 2, 0)):
@@ -412,8 +557,49 @@ def main() -> int:
             if tb and label == "150x150":
                 ms["sw_banded"], plain_ms["sw_banded"] = k_ms, p_ms
                 bounds["sw_banded"] = (b_ms, b_by)
+            del ez, words
 
-    reads0, haps0 = normalize(reads0, haps0)
+        # the plane kernel in its three modes, held to its plain version at
+        # 150 bp (which is not run at 8000 x 2000) and to the banded ez
+        ez_b = sw_cuda.sw_banded(*args, *SW_PARAMS, indel_init=False,
+                                 with_traceback=False)[0]
+        for mode in ("traceback", "samples", "scores"):
+            run, run_plain, ops = sw_plane_mode(args, False, mode)
+            k_ms = cuda_ms(run, iters)
+            out = run()
+            if mode == "traceback":
+                same = torch.equal(out[0], ez_b)
+            elif mode == "samples":
+                ez_s = compute_score_max(*(o.cpu().numpy() for o in out),
+                                         args[2].cpu().numpy(),
+                                         args[3].cpu().numpy())
+                same = all(np.array_equal(ez_s[k], ez_b[i].cpu().numpy())
+                           for i, k in enumerate(EZ_KEYS))
+            else:
+                same = torch.equal(out[0], ez_b[2])
+            if not same:
+                raise AssertionError(f"SW plane {mode} != banded ez at "
+                                     f"{label}")
+            b_ms, b_by = bound(cells * ops, "int32", nbytes(*args, *out))
+            p_text = "not run at this shape"
+            if label == "150x150":
+                p_ms = cuda_ms(run_plain, 1, warmup=p_warm)
+                p_text = f"{p_ms:.3f} ms = {cells / p_ms / 1e6:.2f} GCUPS"
+                e = compare_sw_plane(args, False, mode)
+                if e:
+                    raise AssertionError(f"SW plane kernel != plain at "
+                                         f"{label} ({mode}): {e}")
+                name = "sw_plane_scores" if mode == "scores" else "sw_plane"
+                if mode != "samples":
+                    ms[name], plain_ms[name] = k_ms, p_ms
+                    bounds[name] = (b_ms, b_by)
+            del out
+            log(f"    SW plane {mode} {len(ts)} x {label}: kernel {k_ms:.3f} "
+                f"ms = {cells / k_ms / 1e6:.2f} GCUPS; plain torch {p_text}; "
+                f"bound {b_ms:.4f} ms ({b_by}); equal to "
+                f"{'plain and ' if label == '150x150' else ''}the banded ez; "
+                f"card {card}")
+
     small_r, small_h = normalize(*small)
     a32 = ph.stage_pairs(small_r, small_h,
                          [(r, h) for r in range(32) for h in range(12)],
@@ -421,11 +607,13 @@ def main() -> int:
     tail = [(r, h) for r in range(0, 512, 16) for h in range(12)]
     a64 = ph.stage_pairs(reads0, haps0, tail, CTX_F64, dev)
     for name, a, kern in (("pairhmm_banded_f32", a32, ph.pairhmm_banded_f32),
-                          ("pairhmm_banded_f64", a64, ph.pairhmm_banded_f64)):
+                          ("pairhmm_banded_f64", a64, ph.pairhmm_banded_f64),
+                          ("pairhmm_plane_f32", a32_big,
+                           ph.pairhmm_plane_f32)):
         cells = int((a[2][a[6]].long() * a[4][a[7]].long()).sum())
         k_ms = cuda_ms(lambda: kern(*a), 5)
         p_ms = cuda_ms(lambda: ph.forward_plain(*a), 1)
-        e = compare_pairhmm(a, f64=name.endswith("f64"))
+        e = compare_pairhmm(a, kern)
         if e:
             raise AssertionError(f"{name} != plain at the region shape: {e}")
         err[name] = max(err[name], e)
@@ -452,9 +640,6 @@ def main() -> int:
     bounds["pairhmm_shared_f32"] = bound(
         swept * FLOPS_PER_CELL, "f32",
         nbytes(*a_sh[:5]) + got.numel() * got.element_size())
-    a32_big = ph.stage_pairs(reads0, haps0,
-                             [(r, h) for r in range(512) for h in range(12)],
-                             CTX_F32, dev)
     big_ms = cuda_ms(lambda: ph.pairhmm_banded_f32(*a32_big), 5)
     log(f"    pairhmm_shared_f32 512 reads x 12 haps (stream of {stream_cols} "
         f"of {sum(map(len, haps0))} columns): kernel {k_ms:.3f} ms = "
@@ -477,13 +662,19 @@ def main() -> int:
                                "mgl_tpu/kernels/pairhmm_xf_pallas.py:61"),
         "pairhmm_shared_f32": ("mgl_tpu_torch/csrc/pairhmm_shared.cu",
                                "mgl_tpu/kernels/pairhmm_pallas.py:611"),
+        "sw_plane": ("mgl_tpu_torch/csrc/sw_plane.cu",
+                     "mgl_tpu/kernels/sw_pallas.py:45"),
+        "sw_plane_scores": ("mgl_tpu_torch/csrc/sw_plane.cu",
+                            "mgl_tpu/kernels/sw_pallas.py:689"),
+        "pairhmm_plane_f32": ("mgl_tpu_torch/csrc/pairhmm_plane.cu",
+                              "mgl_tpu/kernels/pairhmm_pallas.py:62"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": err[name],
          "ms": ms[name], "plain_ms": plain_ms[name],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         # no PyTorch call computes a banded pair-HMM or SW recurrence
+         # no PyTorch call computes a pair-HMM or SW recurrence
          "library_ms": None}
         for name, (src, rep) in replaces.items()]}))
     print(json.dumps({"ok": True, "device": {

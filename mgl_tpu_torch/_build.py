@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels and its host library.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` into one shared library with a
-plain C interface, loaded with ``ctypes``; every ``csrc/host/*.cpp`` (the
-host CIGAR decoder) is compiled by ``g++`` into a second one.  Each goes
-to ``build/mgl_tpu_torch/`` at the root of the checkout (git-ignored)
-under a name that carries the hash of its sources and flags, so an edit
-to any source rebuilds it at its next use and an unchanged tree reuses it.
+Every ``csrc/*.cu`` is compiled by its own ``nvcc``, all started
+together, and the objects are linked into one shared library with a plain
+C interface, loaded with ``ctypes``; every ``csrc/host/*.cpp`` (the host
+CIGAR decoder and ScoreMax scan) is compiled by ``g++`` into a second one.
+Each goes to ``build/mgl_tpu_torch/`` at the root of the checkout
+(git-ignored) under a name that carries the hash of its sources and
+flags, so an edit to any source rebuilds it at its next use and an
+unchanged tree reuses it.
 
 Nothing is compiled when this module is imported: :func:`load_library`
 builds at the first kernel launch, :func:`load_host_library` at the first
@@ -45,11 +47,16 @@ _ENTRIES = {
     "mgl_pairhmm_banded_f64": [_P] * 8 + [_I] * 4 + [_P] * 3,
     "mgl_pairhmm_shared_f32": [_P] * 5 + [_I] * 4 + [ctypes.c_float]
                               + [_P] * 3,
+    "mgl_sw_plane": [_P] * 4 + [_I] * 11 + [_P] * 3,
+    "mgl_pairhmm_plane_f32": [_P] * 8 + [_I] * 3 + [_P] * 2,
 }
 _I64 = ctypes.c_int64
 _HOST_ENTRIES = {
+    "cigar_decode_batch": [_I, _P, _I64, _I64, _P, _P, _I, _P, _P, _P, _P,
+                           _P, _I, _P, _I],
     "cigar_decode_batch_banded": [_I, _P, _I64, _I64, _P, _P, _I, _P, _P, _P,
                                   _P, _P, _I, _P, _I, _I, _I, _I64],
+    "score_max_batch": [_I, _P, _P, _I64, _I64, _P, _P] + [_P] * 6,
 }
 
 
@@ -97,19 +104,45 @@ def _nvcc() -> str:
     return found
 
 
+def _run(cmds: list[list[str]], log: list[str]) -> None:
+    """Run ``cmds`` side by side, append each one's report (for nvcc:
+    registers, spills) to ``log``, and raise if any failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out = proc.communicate()[0]
+        log.append(f"$ {' '.join(cmd)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{pathlib.Path(cmd[0]).name} failed "
+                          f"({proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def _compile(compiler: str, flags: tuple[str, ...],
              srcs: list[pathlib.Path], so: pathlib.Path) -> None:
-    """Compile ``srcs`` into ``so``; the compiler's report (for nvcc:
-    registers, spills) goes to ``so`` with the suffix ``.log``."""
+    """Compile ``srcs`` into ``so``, each source by its own compiler
+    process, all started together, then link the objects; the reports go
+    to ``so`` with the suffix ``.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [compiler, *flags, "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    objs = [so.with_name(f"{so.stem}.{os.getpid()}.{src.stem}.o")
+            for src in srcs]
+    log: list[str] = []
+    compile_flags = tuple(f for f in flags if f != "-shared")
+    try:
+        _run([[compiler, *compile_flags, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(srcs, objs)], log)
+        _run([[compiler, *flags, "-o", str(tmp), *map(str, objs)]], log)
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"{pathlib.Path(compiler).name} failed "
-                           f"({proc.returncode}):\n{proc.stderr}")
+        raise
+    finally:
+        so.with_suffix(".log").write_text("".join(log))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, so)   # atomic: a concurrent loader sees all or nothing
 
 
@@ -142,8 +175,8 @@ def load_library() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=1)
 def load_host_library() -> ctypes.CDLL:
-    """The host library (CIGAR decoder), built with g++ first if its
-    sources changed.  Raises if it cannot be built or loaded: there is no
+    """The host library (CIGAR decoder, ScoreMax), built with g++ first if
+    its sources changed.  Raises if it cannot be built or loaded: there is no
     Python fallback."""
     so = host_library_path()
     if not so.exists():

@@ -1,12 +1,14 @@
-"""PairHMM kernel wrappers (per-pair f32 and f64, shared-hap-set f32) and
-their host staging.
+"""PairHMM kernel wrappers (per-pair f32 and f64, plane f32, shared-hap-set
+f32) and their host staging.
 
 :func:`pairhmm_banded_f32` launches ``csrc/pairhmm_banded.cu`` in float,
 the counterpart of ``mgl_tpu/kernels/pairhmm_pallas.py:
 _pairhmm_banded_kernel``; :func:`pairhmm_banded_f64` launches it in
 double, the counterpart of ``pairhmm_xf_pallas.py:_pairhmm_banded_xf_
-kernel``; :func:`pairhmm_shared_f32` launches ``csrc/pairhmm_shared.cu``,
-the counterpart of ``pairhmm_pallas.py:_pairhmm_shared_kernel``.  On CPU
+kernel``; :func:`pairhmm_plane_f32` launches ``csrc/pairhmm_plane.cu``,
+the counterpart of ``pairhmm_pallas.py:_pairhmm_kernel``;
+:func:`pairhmm_shared_f32` launches ``csrc/pairhmm_shared.cu``, the
+counterpart of ``pairhmm_pallas.py:_pairhmm_shared_kernel``.  On CPU
 tensors each runs its plain torch version (``mgl_tpu_torch.ops.pairhmm.
 forward_plain`` / ``shared_forward_plain``).  The kernel sources say what
 bounds them on the card.
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from mgl_tpu_torch import _build
+from mgl_tpu_torch.device import resolve_device
 from mgl_tpu_torch.ops.pairhmm import (BAND, N_PLANES,
                                        compute_haplotype_similarities,
                                        forward_plain, shared_forward_plain)
@@ -33,6 +36,9 @@ from mgl_tpu_torch.tables import (BASE_ENC, CTX_F32, CTX_F64, QualityContext,
                                   context_tables)
 
 _TRACKS = ("q", "i", "d", "c", "bases")
+# 9 floats a matrix row (M, X, Y of three diagonals) within the 227 KB of
+# shared memory a block may take
+PLANE_ROWS_MAX = 232_448 // (9 * 4)
 
 
 def _check(name, x, dtype, shape, device):
@@ -44,7 +50,10 @@ def _check(name, x, dtype, shape, device):
 
 
 def _forward(entry: str, dtype: torch.dtype, planes, rchar, rslen, haps,
-             haplen, y_init, ridx, hidx) -> torch.Tensor:
+             haplen, y_init, ridx, hidx, carry: bool = True) -> torch.Tensor:
+    """Check the per-pair kernels' arguments and launch ``entry``, with a
+    (U, W) carry between bands if ``carry`` (the banded kernels); on CPU
+    tensors run the plain forward."""
     n_r, n_p, rows = planes.shape
     n_h, hap_cols = haps.shape
     B = ridx.shape[0]
@@ -67,17 +76,19 @@ def _forward(entry: str, dtype: torch.dtype, planes, rchar, rslen, haps,
     if B == 0 or hap_cols == 0:
         raise ValueError(f"the PairHMM kernel needs pairs and hap bases, got "
                          f"{B} pairs and {hap_cols} hap columns")
-    carry_cols = hap_cols + BAND + 2
     args = [x.contiguous() for x in (planes, rchar, rslen, haps, haplen,
                                      y_init, ridx, hidx)]
     out = torch.empty((B,), dtype=dtype, device=dev)
-    carry = torch.empty((B, 2, carry_cols), dtype=dtype, device=dev)
+    extra = []
+    if carry:
+        carry_cols = hap_cols + BAND + 2
+        buf = torch.empty((B, 2, carry_cols), dtype=dtype, device=dev)
+        extra = [carry_cols, buf.data_ptr()]
     lib = _build.load_library()
     with torch.cuda.device(dev):
         code = getattr(lib, entry)(
-            *(a.data_ptr() for a in args), B, rows, hap_cols, carry_cols,
-            carry.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            *(a.data_ptr() for a in args), B, rows, hap_cols, *extra,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(lib, code, entry)
     return out
 
@@ -106,6 +117,27 @@ def pairhmm_banded_f64(planes, rchar, rslen, haps, haplen, y_init, ridx,
                    rslen, haps, haplen, y_init, ridx, hidx)
     if planes.device.type == "cuda":
         pairhmm_banded_f64.launches += 1
+    return out
+
+
+def pairhmm_plane_f32(planes, rchar, rslen, haps, haplen, y_init, ridx,
+                      hidx) -> torch.Tensor:
+    """(B,) float32 forward scores, 2^120-scaled, by the plane kernel
+    (``csrc/pairhmm_plane.cu``, the counterpart of
+    ``pairhmm_pallas.py:_pairhmm_kernel``); arguments as
+    :func:`pairhmm_banded_f32`.  Its plain version is
+    ``ops.pairhmm.forward_plain``, the full-height recurrence, which is
+    the banded kernel's plain version too.  Planes of up to
+    ``PLANE_ROWS_MAX`` rows (reads up to 6,432 bases): the block keeps
+    three diagonals of M, X and Y a row in shared memory."""
+    rows = planes.shape[-1]
+    if planes.device.type == "cuda" and rows > PLANE_ROWS_MAX:
+        raise ValueError(f"the plane PairHMM kernel takes up to "
+                         f"{PLANE_ROWS_MAX} plane rows, got {rows}")
+    out = _forward("mgl_pairhmm_plane_f32", torch.float32, planes, rchar,
+                   rslen, haps, haplen, y_init, ridx, hidx, carry=False)
+    if planes.device.type == "cuda":
+        pairhmm_plane_f32.launches += 1
     return out
 
 
@@ -155,6 +187,7 @@ def pairhmm_shared_f32(planes, rchar, rslen, hstream, segtab,
 pairhmm_banded_f32.launches = 0
 pairhmm_banded_f64.launches = 0
 pairhmm_shared_f32.launches = 0
+pairhmm_plane_f32.launches = 0
 
 
 def to_host(t: torch.Tensor) -> Callable[[], np.ndarray]:
@@ -272,6 +305,19 @@ def scores(reads: list[dict], haps: list[np.ndarray],
     and haps are already normalized (BASE_NORM)."""
     kernel = pairhmm_banded_f64 if ctx is CTX_F64 else pairhmm_banded_f32
     return kernel(*stage_pairs(reads, haps, pairs, ctx, device))
+
+
+def forward_scores_plane(reads: list[dict], haps: list[np.ndarray],
+                         pairs: list[tuple[int, int]],
+                         device: str | torch.device = "cuda") -> torch.Tensor:
+    """(B,) float32 scores, 2^120-scaled, of (read, hap) pairs through the
+    plane kernel: the counterpart of ``pairhmm_pallas.py:1340
+    forward_scores_plane``, with the per-pair kernels' staging
+    (:func:`stage_pairs`) in place of the TPU's lane-major
+    ``prepare_inputs``.  Reads' bases and haps are already normalized
+    (BASE_NORM); not synchronised."""
+    return pairhmm_plane_f32(*stage_pairs(reads, haps, pairs, CTX_F32,
+                                          resolve_device(device)))
 
 
 def segment_table(haps: list[np.ndarray], positions: np.ndarray

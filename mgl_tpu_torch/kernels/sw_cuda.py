@@ -1,12 +1,15 @@
-"""Banded SW kernel wrapper and the aligner's bucket pipeline.
+"""SW kernel wrappers and the aligner's bucket pipelines.
 
 :func:`sw_banded` launches ``csrc/sw_banded.cu`` (the counterpart of
-``mgl_tpu/kernels/sw_pallas.py:_sw_banded_kernel``) on CUDA tensors and
-runs its plain torch version (``mgl_tpu_torch.ops.sw.sw_banded_plain``)
-on CPU tensors.  The kernel source says what bounds it on the card.
-:func:`align_batch_banded` is the port of ``sw_pallas.py:1101``: pack a
-bucket, run the kernel in traceback mode, decode CIGARs on the host with
-the port's banded decoder (``mgl_tpu_torch.native``).
+``mgl_tpu/kernels/sw_pallas.py:_sw_banded_kernel``); :func:`sw_plane`
+and :func:`sw_plane_scores` launch ``csrc/sw_plane.cu`` (the counterparts
+of ``sw_pallas.py:_sw_kernel`` and ``:_sw_score_kernel``).  On CPU
+tensors each runs its plain torch version (``mgl_tpu_torch.ops.sw``).
+The kernel sources say what bounds them on the card.
+:func:`align_batch_banded` is the port of ``sw_pallas.py:1101`` and
+:func:`align_batch` of ``:1164``: pack a bucket, run a kernel in
+traceback mode, decode CIGARs on the host with the port's decoder of the
+kernel's layout (``mgl_tpu_torch.native``).
 """
 
 from __future__ import annotations
@@ -16,18 +19,19 @@ import torch
 
 from mgl_tpu_torch import _build
 from mgl_tpu_torch.core.params import OverhangStrategy, SWParameters
-from mgl_tpu_torch.native import cigar_decode_bulk_banded
-from mgl_tpu_torch.ops.sw import BAND, EZ_KEYS, banded_layout, sw_banded_plain
+from mgl_tpu_torch.device import resolve_device
+from mgl_tpu_torch.native import cigar_decode_bulk, cigar_decode_bulk_banded
+from mgl_tpu_torch.ops.sw import (BAND, EZ_KEYS, banded_layout, plane_words,
+                                  sw_banded_plain, sw_plane_plain,
+                                  sw_plane_scores_plain)
+
+# the plane kernel's shared-memory ring: 7 int arrays of a power of two
+# >= min(T, Q) + 2 rows within the 227 KB a block may take
+PLANE_RING_MAX = 8192
 
 
-def sw_banded(tgt: torch.Tensor, qry: torch.Tensor, tlen: torch.Tensor,
-              qlen: torch.Tensor, match: int, mismatch: int, gap_open: int,
-              gap_ext: int, *, indel_init: bool, with_traceback: bool = True):
-    """Banded SW over B pairs: (ez (6, B) int32, words (B, G, 32) int32 or
-    None).  ``tgt`` (B, T) / ``qry`` (B, Q) uint8 zero-padded, ``tlen`` /
-    ``qlen`` (B,) int32 with 1 <= tlen <= T and 1 <= qlen <= Q; layout as
-    :func:`mgl_tpu_torch.ops.sw.banded_layout`.  Traceback and score-only
-    mode are one kernel with a compile-time flag."""
+def _check_pairs(fn: str, tgt, qry, tlen, qlen) -> None:
+    """Types, shapes and devices of the SW kernels' four inputs."""
     B, T = tgt.shape
     Q = qry.shape[1]
     for name, x, dtype, shape in (("tgt", tgt, torch.uint8, (B, T)),
@@ -39,16 +43,28 @@ def sw_banded(tgt: torch.Tensor, qry: torch.Tensor, tlen: torch.Tensor,
                              f"{x.dtype} {tuple(x.shape)}")
         if x.device != tgt.device:
             raise ValueError(f"{name} is on {x.device}, tgt on {tgt.device}")
+    if tgt.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn} runs on cuda or cpu, not {tgt.device}")
+    if tgt.device.type == "cuda" and min(B, T, Q) == 0:
+        raise ValueError(f"{fn} needs pairs and bases, got {B} pairs of "
+                         f"{T} x {Q}")
+
+
+def sw_banded(tgt: torch.Tensor, qry: torch.Tensor, tlen: torch.Tensor,
+              qlen: torch.Tensor, match: int, mismatch: int, gap_open: int,
+              gap_ext: int, *, indel_init: bool, with_traceback: bool = True):
+    """Banded SW over B pairs: (ez (6, B) int32, words (B, G, 32) int32 or
+    None).  ``tgt`` (B, T) / ``qry`` (B, Q) uint8 zero-padded, ``tlen`` /
+    ``qlen`` (B,) int32 with 1 <= tlen <= T and 1 <= qlen <= Q; layout as
+    :func:`mgl_tpu_torch.ops.sw.banded_layout`.  Traceback and score-only
+    mode are one kernel with a compile-time flag."""
+    _check_pairs("sw_banded", tgt, qry, tlen, qlen)
     if tgt.device.type == "cpu":
         return sw_banded_plain(tgt, qry, tlen, qlen, match, mismatch,
                                gap_open, gap_ext, indel_init=indel_init,
                                with_traceback=with_traceback)
-    if tgt.device.type != "cuda":
-        raise ValueError(f"sw_banded runs on cuda or cpu, not {tgt.device}")
-    if min(B, T, Q) == 0:
-        raise ValueError(f"sw_banded needs pairs and bases, got {B} pairs "
-                         f"of {T} x {Q}")
-
+    B, T = tgt.shape
+    Q = qry.shape[1]
     nb, wpb = banded_layout(T, Q)
     carry_cols = Q + BAND + 2
     tgt, qry = tgt.contiguous(), qry.contiguous()
@@ -75,6 +91,79 @@ def sw_banded(tgt: torch.Tensor, qry: torch.Tensor, tlen: torch.Tensor,
 sw_banded.launches = 0
 
 
+def _sw_plane(mode: int, tgt, qry, tlen, qlen, match, mismatch, gap_open,
+              gap_ext, indel_init: bool, outs: tuple[torch.Tensor, ...]
+              ) -> None:
+    """Launch ``csrc/sw_plane.cu`` in ``mode`` (0 traceback, 1 samples,
+    2 best score) into the preallocated ``outs``."""
+    B, T = tgt.shape
+    Q = qry.shape[1]
+    ring = 1 << (min(T, Q) + 1).bit_length()       # a power of two > min + 1
+    if ring > PLANE_RING_MAX:
+        raise ValueError(f"the plane SW kernel takes min(T, Q) up to "
+                         f"{PLANE_RING_MAX - 2}, got {T} x {Q}")
+    args = [x.contiguous() for x in (tgt, qry, tlen, qlen)]
+    lib = _build.load_library()
+    with torch.cuda.device(tgt.device):
+        code = lib.mgl_sw_plane(
+            *(a.data_ptr() for a in args), B, T, Q, int(match), int(mismatch),
+            int(gap_open), int(gap_ext), int(indel_init), mode, ring,
+            plane_words(T, Q), *(o.data_ptr() for o in outs),
+            *([None] * (2 - len(outs))),
+            torch.cuda.current_stream(tgt.device).cuda_stream)
+    _build.check_launch(lib, code, "sw_plane")
+
+
+def sw_plane(tgt: torch.Tensor, qry: torch.Tensor, tlen: torch.Tensor,
+             qlen: torch.Tensor, match: int, mismatch: int, gap_open: int,
+             gap_ext: int, *, indel_init: bool, with_traceback: bool = True):
+    """Plane SW over B pairs, arguments as :func:`sw_banded`.  Traceback
+    mode: (ez (6, B) int32, words (B, plane_words(T, Q), T+1) int32 in the
+    plane layout); samples mode (``with_traceback=False``): (lc, lr), each
+    (B, T+Q-1) int32 - as :func:`mgl_tpu_torch.ops.sw.sw_plane_plain`."""
+    _check_pairs("sw_plane", tgt, qry, tlen, qlen)
+    if tgt.device.type == "cpu":
+        return sw_plane_plain(tgt, qry, tlen, qlen, match, mismatch,
+                              gap_open, gap_ext, indel_init=indel_init,
+                              with_traceback=with_traceback)
+    B, T = tgt.shape
+    Q = qry.shape[1]
+    dev = tgt.device
+    if with_traceback:
+        outs = (torch.empty((6, B), dtype=torch.int32, device=dev),
+                torch.zeros((B, plane_words(T, Q), T + 1), dtype=torch.int32,
+                            device=dev))
+    else:
+        outs = (torch.zeros((B, T + Q - 1), dtype=torch.int32, device=dev),
+                torch.zeros((B, T + Q - 1), dtype=torch.int32, device=dev))
+    _sw_plane(0 if with_traceback else 1, tgt, qry, tlen, qlen, match,
+              mismatch, gap_open, gap_ext, indel_init, outs)
+    sw_plane.launches += 1
+    return outs
+
+
+def sw_plane_scores(tgt: torch.Tensor, qry: torch.Tensor, tlen: torch.Tensor,
+                    qlen: torch.Tensor, match: int, mismatch: int,
+                    gap_open: int, gap_ext: int, *, indel_init: bool
+                    ) -> torch.Tensor:
+    """(B,) int32 best alignment score of each pair by the plane kernel's
+    best-score mode, arguments as :func:`sw_banded` - as
+    :func:`mgl_tpu_torch.ops.sw.sw_plane_scores_plain`."""
+    _check_pairs("sw_plane_scores", tgt, qry, tlen, qlen)
+    if tgt.device.type == "cpu":
+        return sw_plane_scores_plain(tgt, qry, tlen, qlen, match, mismatch,
+                                     gap_open, gap_ext, indel_init=indel_init)
+    out = torch.empty((tgt.shape[0],), dtype=torch.int32, device=tgt.device)
+    _sw_plane(2, tgt, qry, tlen, qlen, match, mismatch, gap_open, gap_ext,
+              indel_init, (out,))
+    sw_plane_scores.launches += 1
+    return out
+
+
+sw_plane.launches = 0
+sw_plane_scores.launches = 0
+
+
 def pack_sequences(seqs: list[bytes]) -> np.ndarray:
     """(B, longest) uint8, row b = seqs[b] zero-padded."""
     lens = np.fromiter((len(s) for s in seqs), np.int64, len(seqs))
@@ -84,23 +173,52 @@ def pack_sequences(seqs: list[bytes]) -> np.ndarray:
     return out
 
 
-def align_batch_banded(targets: list[bytes], queries: list[bytes],
-                       params: SWParameters, strategy: OverhangStrategy,
-                       device: torch.device) -> list[tuple[str, int]]:
-    """[(cigar, offset)] for one length bucket: the banded kernel in
-    traceback mode, then the host's native banded CIGAR decode."""
+def _traceback(kernel, targets: list[bytes], queries: list[bytes],
+               params: SWParameters, strategy: OverhangStrategy, device):
+    """(tlen, qlen, ez (6, B), words) on the host: one SW kernel in
+    traceback mode over the pairs padded to the batch maxima."""
     tlen = np.fromiter((len(t) for t in targets), np.int32, len(targets))
     qlen = np.fromiter((len(q) for q in queries), np.int32, len(queries))
-    ez_d, words_d = sw_banded(
+    ez_d, words_d = kernel(
         torch.from_numpy(pack_sequences(targets)).to(device),
         torch.from_numpy(pack_sequences(queries)).to(device),
         torch.from_numpy(tlen).to(device), torch.from_numpy(qlen).to(device),
         params.match, params.mismatch, params.gap_open, params.gap_extend,
         indel_init=bool(strategy & (OverhangStrategy.INDEL
                                     | OverhangStrategy.LEADING_INDEL)))
+    return tlen, qlen, ez_d.cpu().numpy(), words_d.cpu().numpy()
+
+
+def align_batch_banded(targets: list[bytes], queries: list[bytes],
+                       params: SWParameters, strategy: OverhangStrategy,
+                       device: torch.device) -> list[tuple[str, int]]:
+    """[(cigar, offset)] for one length bucket: the banded kernel in
+    traceback mode, then the host's native banded CIGAR decode."""
+    tlen, qlen, ez, words = _traceback(sw_banded, targets, queries, params,
+                                       strategy, device)
     wpb = banded_layout(int(tlen.max()), int(qlen.max()))[1]
-    return decode_cigars(ez_d.cpu().numpy(), words_d.cpu().numpy(), tlen,
-                         qlen, strategy, wpb)
+    return decode_cigars(ez, words, tlen, qlen, strategy, wpb)
+
+
+def align_batch(targets: list[bytes], queries: list[bytes],
+                params: SWParameters, strategy: OverhangStrategy,
+                device: str | torch.device = "cuda"
+                ) -> list[tuple[str, int]]:
+    """[(cigar, offset)] of a batch through the plane kernel: the port of
+    ``sw_pallas.py:1164 align_batch``, with the contract of the JAX
+    package's ``ops.sw.align_batch``.  It pads to the batch maxima, so
+    the caller buckets by length; then the kernel in traceback mode and
+    the host's plane CIGAR decode (``native.cigar_decode_bulk``)."""
+    if len(targets) != len(queries) or not targets:
+        raise ValueError(f"align_batch needs as many queries as targets, "
+                         f"and pairs: {len(targets)} / {len(queries)}")
+    if not all(map(len, targets)) or not all(map(len, queries)):
+        raise ValueError("empty sequence")
+    tlen, qlen, ez, words = _traceback(sw_plane, targets, queries, params,
+                                       strategy, resolve_device(device))
+    return cigar_decode_bulk(words.view(np.uint32),
+                             dict(zip(EZ_KEYS, ez.astype(np.int64))), tlen,
+                             qlen, int(strategy))
 
 
 def host_decoder_ready() -> bool:

@@ -1,7 +1,7 @@
 """Fixtures and checks shared by the port's tests, ``chip_smoke.py`` and
 ``mgl_tpu_torch.profile_e2e``: seeded SW pairs and GATK-shaped PairHMM
-regions, golden rows, tensor packers, a traceback comparison and a
-CUDA-event timer.  Nothing on the main path imports this module.
+regions, golden rows, tensor packers, traceback comparisons of both
+layouts and a CUDA-event timer.  Nothing on the main path imports this module.
 """
 
 from __future__ import annotations
@@ -136,6 +136,30 @@ def traceback_mismatches(words_a: torch.Tensor, words_b: torch.Tensor,
         for n in range(8):
             t = 8 * w + n                                        # j - 1 + s
             real = (i <= tl) & (t >= s) & (t - s < ql)
+            bad += int((((diff >> (4 * n)) & 0xF) != 0)[real].sum())
+    return bad
+
+
+def plane_traceback_mismatches(words_a: torch.Tensor, words_b: torch.Tensor,
+                               tlen: torch.Tensor, qlen: torch.Tensor) -> int:
+    """How many real cells (1 <= i <= tlen, 1 <= j <= qlen) hold different
+    nibbles in two (B, n_words, R1) traceback outputs of the same pairs in
+    the plane layout (the nibble of cell (i, j) in word (i+j-2)//8 of row
+    i, nibble (i+j-2)%8)."""
+    dev = words_a.device
+    B, W, R1 = words_a.shape
+    chunk = max(1, (1 << 24) // (W * R1))     # pairs per pass, ~16M words
+    i = torch.arange(R1, device=dev)[None, None, :]           # (1, 1, R1)
+    w = torch.arange(W, device=dev)[None, :, None]            # (1, W, 1)
+    bad = 0
+    for b0 in range(0, B, chunk):
+        tl = tlen[b0:b0 + chunk].to(dev).long()[:, None, None]
+        ql = qlen[b0:b0 + chunk].to(dev).long()[:, None, None]
+        diff = (words_a[b0:b0 + chunk].long()
+                ^ words_b[b0:b0 + chunk].long()) & 0xFFFFFFFF
+        for n in range(8):
+            j = 8 * w + n + 2 - i
+            real = (i >= 1) & (i <= tl) & (j >= 1) & (j <= ql)
             bad += int((((diff >> (4 * n)) & 0xF) != 0)[real].sum())
     return bad
 
