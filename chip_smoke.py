@@ -52,7 +52,7 @@ PEAK = {"f32": 67e12, "f64": 34e12, "int32": 132 * 64 * 1.98e9,
 # operations a cell, counted from the sources: PairHMM 7 multiplies and
 # 4 adds (pairhmm_banded.cu, pairhmm_shared.cu, pairhmm_plane.cu); SW 12
 # integer ops for the scores and 18 more for the traceback nibble
-# (sw_banded.cu:104-122), the same for the plane kernel's traceback and
+# (sw_banded.cu:207-226), the same for the plane kernel's traceback and
 # samples modes; its best-score mode 11 (sw_plane.cu:117-127: two gaps
 # of two subtractions and a maximum, the substitution's compare, select
 # and add, and two maxima)
@@ -65,10 +65,10 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def compare_sw(args, indel_init: bool, with_traceback: bool) -> int:
-    """Banded kernel vs plain on the card: the largest |ez| difference
-    plus the number of real traceback cells that differ (0 when
-    bit-equal)."""
+def compare_sw(args, indel_init: bool, with_traceback: bool, warps) -> int:
+    """Banded kernel at each W of ``warps`` (None: the wrapper's choice) vs
+    plain on the card: the largest |ez| difference plus the number of real
+    traceback cells that differ (0 when bit-equal)."""
     import torch
 
     from mgl_tpu_torch.kernels.sw_cuda import sw_banded, sw_banded_plain
@@ -76,13 +76,16 @@ def compare_sw(args, indel_init: bool, with_traceback: bool) -> int:
     from mgl_tpu_torch.testing import traceback_mismatches
 
     kw = dict(indel_init=indel_init, with_traceback=with_traceback)
-    ez_k, w_k = sw_banded(*args, *SW_PARAMS, **kw)
     ez_p, w_p = sw_banded_plain(*args, *SW_PARAMS, **kw)
-    torch.cuda.synchronize()
-    err = int((ez_k.long() - ez_p.long()).abs().max())
-    if with_traceback:
-        wpb = banded_layout(args[0].shape[1], args[1].shape[1])[1]
-        err += traceback_mismatches(w_k, w_p, args[2], args[3], wpb)
+    err = 0
+    for w in warps:
+        ez_k, w_k = sw_banded(*args, *SW_PARAMS, **kw, warps_per_pair=w)
+        torch.cuda.synchronize()
+        e = int((ez_k.long() - ez_p.long()).abs().max())
+        if with_traceback:
+            wpb = banded_layout(args[0].shape[1], args[1].shape[1])[1]
+            e += traceback_mismatches(w_k, w_p, args[2], args[3], wpb)
+        err = max(err, e)
     return err
 
 
@@ -167,14 +170,16 @@ def main() -> int:
     from mgl_tpu_torch.batch.bucketing import bucket_pairs
     from mgl_tpu_torch.kernels import pairhmm_cuda as ph
     from mgl_tpu_torch.kernels import sw_cuda
-    from mgl_tpu_torch.ops.sw import EZ_KEYS, compute_score_max
+    from mgl_tpu_torch.ops.sw import EZ_KEYS, banded_layout, compute_score_max
     from mgl_tpu_torch.ops.pairhmm import (normalize, pair_likelihoods,
                                            shared_forward_plain,
                                            use_shared_kernel)
     from mgl_tpu_torch.tables import CTX_F32, CTX_F64, MIN_ACCEPTED
     from mgl_tpu_torch.testing import (ACGT, cuda_ms, engine_region,
                                        golden_groups, golden_read,
-                                       load_golden, sw_pairs, sw_tensors, u8)
+                                       load_golden, sw_pairs, sw_tensors,
+                                       timed_calls, traceback_mismatches,
+                                       u8)
 
     kernels = {"sw_banded": sw_cuda.sw_banded,
                "pairhmm_banded_f32": ph.pairhmm_banded_f32,
@@ -229,7 +234,7 @@ def main() -> int:
         indel = bool(strategy & (OverhangStrategy.INDEL
                                  | OverhangStrategy.LEADING_INDEL))
         for tb in (True, False):
-            e = compare_sw(args, indel, tb)
+            e = compare_sw(args, indel, tb, (None, *sw_cuda.BANDED_WARPS))
             if e:
                 raise AssertionError(f"SW kernel != plain ({strategy.name}, "
                                      f"traceback={tb}): {e}")
@@ -241,6 +246,21 @@ def main() -> int:
                                      f"({strategy.name}, {mode}): {e}")
             name = "sw_plane_scores" if mode == "scores" else "sw_plane"
             err[name] = max(err[name], e)
+    # a bucket of 2,048 queries of 1-2 kb: with its carry row in shared
+    # memory 12 blocks would fit an SM that gets 16, so the launcher keeps
+    # the rows in global memory - that path against the plain version too
+    long_q, short_t = sw_pairs(12, 2048, (1000, 2000), (1, 64))
+    gargs = sw_tensors(short_t, long_q, dev)
+    for tb in (True, False):
+        if any(sw_cuda.banded_carry_in_shared(2048, gargs[1].shape[1], w, tb,
+                                              dev) for w in (1, 2)):
+            raise AssertionError("SW kernel: the 2,048 long queries did "
+                                 "not take the global-memory carry")
+        e = compare_sw(gargs, False, tb, (None, 1, 2))
+        if e:
+            raise AssertionError(f"SW kernel != plain (global-memory carry, "
+                                 f"traceback={tb}): {e}")
+    del gargs
     kat = load_golden("pairhmm_kat.json")
     kat_reads = [golden_read(c) for c in kat]
     kat_haps = [u8(c["hap"]) for c in kat]
@@ -312,9 +332,12 @@ def main() -> int:
     if not torch.equal(*outs):
         raise AssertionError("shared kernel: sharing on != sharing off")
     log(f"[2 kernel==plain, tolerance 0 (bit for bit)] SW {len(targets)} "
-        f"pairs 40-250 bp x 4 strategies: banded x 2 modes, ez and real-cell "
-        f"nibbles equal; plane x 3 modes (traceback, samples, best score), "
-        f"every output equal; PairHMM f32 banded and plane on {len(kat)} KAT "
+        f"pairs 40-250 bp x 4 strategies: banded x 2 modes at the wrapper's "
+        f"W and at W = {', '.join(map(str, sw_cuda.BANDED_WARPS))} warps a "
+        f"pair, and 2,048 pairs of 1-64 x 1,000-2,000 bp (carry row in "
+        f"global memory) at W = 1, 2, ez and real-cell nibbles equal; plane "
+        f"x 3 modes (traceback, "
+        f"samples, best score), every output equal; PairHMM f32 banded and plane on {len(kat)} KAT "
         f"+ {len(rnd_pairs)} random ragged pairs: equal; PairHMM f64 on {len(golden)} golden rows: "
         f"equal; shared on {len(sh_reads)} reads of 50-160 bp x "
         f"{len(sh_haps)} haps (positions "
@@ -532,32 +555,74 @@ def main() -> int:
 
     # ---- phase 8: kernel and plain times at the main path's shapes --------
     ms, plain_ms, bounds = {}, {}, {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for label, ts, qs, iters, p_warm in (("150x150", sw_t, sw_q, 5, 1),
                                          ("8000x2000", long_t, long_q, 2, 0)):
         args = sw_tensors(ts, qs, dev)
         cells = sum(len(t) * len(q) for t, q in zip(ts, qs))
+        nb, wpb = banded_layout(args[0].shape[1], args[1].shape[1])
+        chosen = sw_cuda.banded_warps(len(ts), nb, sms)
+        # the wrapper's W against the plain version (one run of it a mode),
+        # then the sweep over every W up to the bands, each bit-equal to it
+        sweep = [chosen] + [w for w in sw_cuda.BANDED_WARPS
+                            if w <= nb and w != chosen]
         for tb in (True, False):
             kw = dict(indel_init=False, with_traceback=tb)
-            k_ms = cuda_ms(lambda: sw_cuda.sw_banded(*args, *SW_PARAMS, **kw),
-                           iters)
-            p_ms = cuda_ms(lambda: sw_cuda.sw_banded_plain(
-                *args, *SW_PARAMS, **kw), 1, warmup=p_warm)
-            e = compare_sw(args, False, tb)
-            if e:
-                raise AssertionError(f"SW kernel != plain at {label} "
-                                     f"(traceback={tb}): {e}")
-            ez, words = sw_cuda.sw_banded(*args, *SW_PARAMS, **kw)
-            b_ms, b_by = bound(cells * SW_OPS_PER_CELL[tb], "int32",
-                               nbytes(*args, ez, *([words] if tb else [])))
             mode = "traceback" if tb else "score-only"
-            log(f"    SW {mode} {len(ts)} x {label}: kernel {k_ms:.3f} ms = "
-                f"{cells / k_ms / 1e6:.2f} GCUPS; plain torch {p_ms:.3f} ms = "
-                f"{cells / p_ms / 1e6:.2f} GCUPS; bound {b_ms:.4f} ms "
-                f"({b_by}); equal; card {card}")
-            if tb and label == "150x150":
-                ms["sw_banded"], plain_ms["sw_banded"] = k_ms, p_ms
-                bounds["sw_banded"] = (b_ms, b_by)
-            del ez, words
+            if p_warm:
+                sw_cuda.sw_banded_plain(*args, *SW_PARAMS, **kw)
+            (ez_p, w_p), p_ms = timed_calls(lambda: sw_cuda.sw_banded_plain(
+                *args, *SW_PARAMS, **kw))
+            for w in sweep:
+                k_ms = cuda_ms(lambda: sw_cuda.sw_banded(
+                    *args, *SW_PARAMS, **kw, warps_per_pair=w), iters)
+                ez, words = sw_cuda.sw_banded(*args, *SW_PARAMS, **kw,
+                                              warps_per_pair=w)
+                torch.cuda.synchronize()
+                if w == chosen:
+                    e = int((ez.long() - ez_p.long()).abs().max())
+                    if tb:
+                        e += traceback_mismatches(words, w_p, args[2],
+                                                  args[3], wpb)
+                    ez_c, words_c = ez, words
+                    held = "equal to plain"
+                else:
+                    e = int(not (torch.equal(ez, ez_c) and (
+                        not tb or torch.equal(words, words_c))))
+                    held = f"every word equal to W={chosen}'s"
+                if e:
+                    raise AssertionError(f"SW kernel W={w} at {label} "
+                                         f"({mode}): {e} differences")
+                if w == chosen:
+                    b_ms, b_by = bound(cells * SW_OPS_PER_CELL[tb], "int32",
+                                       nbytes(*args, ez,
+                                              *([words] if tb else [])))
+                    log(f"    SW {mode} {len(ts)} x {label}: plain torch "
+                        f"{p_ms:.3f} ms = {cells / p_ms / 1e6:.2f} GCUPS; "
+                        f"bound {b_ms:.4f} ms ({b_by}); card {card}")
+                    if tb and label == "150x150":
+                        ms["sw_banded"], plain_ms["sw_banded"] = k_ms, p_ms
+                        bounds["sw_banded"] = (b_ms, b_by)
+                carry = ("shared" if sw_cuda.banded_carry_in_shared(
+                    len(ts), args[1].shape[1], w, tb, dev) else "global")
+                log(f"      W={w}{' (chosen)' if w == chosen else ''}: "
+                    f"kernel {k_ms:.3f} ms = {cells / k_ms / 1e6:.2f} GCUPS; "
+                    f"carry row in {carry} memory; {held}; card {card}")
+                del ez, words
+            del ez_p, w_p, ez_c, words_c
+        if label == "150x150":
+            # the aligner's launches: one a bucket of <= 2,048, W its own
+            bargs = [sw_tensors([ts[k] for k in idx], [qs[k] for k in idx],
+                                dev) for _, idx in buckets]
+            for tb in (True, False):
+                b_ms = cuda_ms(lambda: [sw_cuda.sw_banded(
+                    *a, *SW_PARAMS, indel_init=False, with_traceback=tb)
+                    for a in bargs], iters)
+                log(f"    SW {'traceback' if tb else 'score-only'} over the "
+                    f"aligner's {len(bargs)} buckets (W = "
+                    f"{[sw_cuda.banded_warps(a[0].shape[0], nb, sms) for a in bargs]}"
+                    f"): {b_ms:.3f} ms for {len(bargs)} launches; card {card}")
+            del bargs
 
         # the plane kernel in its three modes, held to its plain version at
         # 150 bp (which is not run at 8000 x 2000) and to the banded ez

@@ -42,7 +42,8 @@ _I = ctypes.c_int
 # C entry points: name -> argument types (every pointer and the stream as
 # c_void_p, so none is cut to 32 bits)
 _ENTRIES = {
-    "mgl_sw_banded": [_P] * 4 + [_I] * 12 + [_P] * 4,
+    "mgl_sw_banded": [_P] * 4 + [_I] * 13 + [_P] * 4,
+    "mgl_sw_banded_carry_in_shared": [_I] * 4,
     "mgl_pairhmm_banded_f32": [_P] * 8 + [_I] * 4 + [_P] * 3,
     "mgl_pairhmm_banded_f64": [_P] * 8 + [_I] * 4 + [_P] * 3,
     "mgl_pairhmm_shared_f32": [_P] * 5 + [_I] * 4 + [ctypes.c_float]

@@ -2,16 +2,34 @@
 //
 // Replaces the TPU kernel mgl_tpu/kernels/sw_pallas.py:_sw_banded_kernel
 // (wrapper sw_pallas_banded, :930).  Same recurrence, tie rules and
-// outputs; the layout is rethought for a warp:
+// outputs; the layout is rethought for warps:
 //
-// * One warp per pair.  Lane s holds matrix row r = 32*b + s + 1 of band b;
-//   on step t it computes column c = t - s + 1, so the cell above (r-1, c)
-//   was computed by lane s-1 on step t-1 and arrives by one lane shuffle
-//   (the TPU kernel's sublane roll).
-// * Between bands one (A, H) row per column goes through a per-pair carry
-//   in global memory: lane 31 writes the band's bottom row, lane 0 of the
-//   next band reads it.  Reads run 32 columns ahead of writes, so one
-//   buffer serves, and no length needs a tier of its own.
+// * One block a pair, W warps (W = 1, 2, 4 .. 32, chosen by the wrapper).
+//   Lane s holds matrix row r = 32*b + s + 1 of band b, and warp w runs
+//   bands w, w+W, w+2W, ...; on step t a lane computes column
+//   c = t - s + 1, so the cell above (r-1, c) was computed by lane s-1 on
+//   step t-1 and arrives by one lane shuffle (the TPU kernel's sublane
+//   roll).
+// * Between bands one (A, H) row per column goes through one carry row a
+//   pair: lane 31 writes the band's bottom row at column t - 30 on step t,
+//   and lane 0 of the band below takes column t + 2 on step t.  A band
+//   reads a column 32 steps before it writes it, and waits for the band
+//   above, so one row serves any W.  The launcher puts the row in shared
+//   memory (8 * (Q + 34) bytes a block) when that leaves an SM as many
+//   resident blocks as the batch can use with the row in global memory,
+//   and in global memory otherwise: many long queries (2,048 of 10,000
+//   bases: 2 blocks an SM with the row in shared memory, 16 without) or
+//   a row over the block's opt-in limit (Q above ~29,000).  Shared is
+//   11-21% faster at 10,000 x 150 bp with traceback (PERF.md).
+// * Carry and query off the step's critical path: each lane stages one
+//   value of the next 32 columns (carry A and H, query base) in registers
+//   a chunk ahead, and on step t lane 0 takes its three by shuffles from
+//   lane t & 31, which depend on nothing computed in the step.
+// * Handoff between warps: every 32 steps lane 31 publishes how many carry
+//   columns of its band it has written (a release store to its warp's
+//   counter in shared memory); before staging a chunk, each lane of the
+//   band below polls that counter with acquire loads.  A band runs 64-96
+//   steps behind the band above.
 // * The vertical-gap stream is pre-combined as A = max(H - open, E - ext)
 //   with the E-extend bit in the LSB (traceback mode), as on the TPU.
 // * Traceback: each lane packs 8 nibbles (move | ebit<<2 | fbit<<3) per
@@ -19,27 +37,43 @@
 //   128 contiguous bytes.  Layout per pair (G, 32) with G = NB * WPB:
 //   cell (i, j) -> word (i-1)/32 * WPB + (j-1+s)/8, lane s = (i-1)%32,
 //   nibble (j-1+s)%8 - what the host decoder (csrc/host/cigar_decode.cpp)
-//   reads.
+//   reads.  Lanes also store nibbles for the steps before the wavefront
+//   reaches their row and past ql; no decode reads them, and the plain
+//   version's differ there.
 // * ScoreMax: the last-column best is kept per lane (rows ascend within a
-//   lane, so '>=' keeps the last row) and reduced over the warp on the
-//   key (value, row); the last row lives in one lane, which scans it in
-//   column order with the reference's '>' / closer-to-diagonal rule.
+//   lane, so '>=' keeps the last row) and the last row lives in one lane,
+//   which scans it in column order with the reference's '>' /
+//   closer-to-diagonal rule; both are reduced over the warp, then over
+//   the block's warps, on total orders, so the tie rules hold for any W.
+// * Two kinds of step: the first 32 of a band and those where a column
+//   reaches ql check the column-0 boundary and both ScoreMax updates; the
+//   steps between, where every lane's column lies in 1 .. ql-1, check
+//   neither (the last-row update only in the band holding row tlen) and
+//   run 8 at a time, so a nibble's place in its word is a constant.
 //
-// What bounds it on an H100: each step is ~40 dependent integer ops and
-// three shuffles per lane, with no reuse of memory beyond the carry, so
-// it is issue-bound; one warp per pair keeps every lane busy once the
-// 31-step ramp of each band is over.  The carry is read one value per
-// step by lane 0 and lies in L2.
+// What bounds it on an H100: a step is a chain of ~8 dependent integer
+// ops and a shuffle per lane, with no memory access on it.  One warp
+// cannot hide that chain, so the wrapper picks W to put 8-16 warps on
+// each SM (many short pairs take W = 1, a few long pairs up to 32); there
+// the step's instruction count - the recurrence, the nibble, six
+// shuffles and lane 31's carry stores - sets the time.
 
+#include <algorithm>
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kBand = 32;
+constexpr int kMaxWarps = 32;
 constexpr int kNeg = -(1 << 30);       // DP_NEG_INF (mgl_tpu/core/params.py)
 constexpr int kBig = 0x3FFFFFFF;
 constexpr unsigned kFull = 0xffffffffu;
+// ints of shared memory before the carry row: a progress counter and the
+// five ScoreMax fields of each warp
+constexpr int kHead = 6 * kMaxWarps;
 
 __device__ __forceinline__ int border(int k, int indel_init, int go, int ge) {
   // first-row / first-column score at index k (sw.cpp:29-40)
@@ -51,41 +85,107 @@ __device__ __forceinline__ int pack_a(int v, int ext_bit) {
                           static_cast<unsigned>(ext_bit));
 }
 
-template <bool kTraceback>
-__global__ void __launch_bounds__(128)
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cta.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.cta.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// every lane waits until the band above has published `target`
+__device__ __forceinline__ void wait_for(const int* counter, int target) {
+  while (load_acquire(counter) < target) __nanosleep(64);
+  __syncwarp();
+}
+
+// max on (value, row) for the last column; on (value, -distance, -column)
+// for the last row - total orders, so any reduction order gives one answer
+__device__ __forceinline__ void reduce_warp(int& mqe, int& mqe_t, int& rmax,
+                                            int& rdist, int& rj) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const int ov = __shfl_xor_sync(kFull, mqe, off);
+    const int ot = __shfl_xor_sync(kFull, mqe_t, off);
+    if (ov > mqe || (ov == mqe && ot > mqe_t)) {
+      mqe = ov;
+      mqe_t = ot;
+    }
+    const int rv = __shfl_xor_sync(kFull, rmax, off);
+    const int rd = __shfl_xor_sync(kFull, rdist, off);
+    const int rc = __shfl_xor_sync(kFull, rj, off);
+    if (rv > rmax || (rv == rmax && (rd < rdist || (rd == rdist && rc < rj)))) {
+      rmax = rv;
+      rdist = rd;
+      rj = rc;
+    }
+  }
+}
+
+template <bool kTraceback, bool kSharedCarry>
+__global__ void __launch_bounds__(kBand * kMaxWarps)
 sw_banded_kernel(const uint8_t* __restrict__ tgt, const uint8_t* __restrict__ qry,
                  const int* __restrict__ tlen, const int* __restrict__ qlen,
                  int n_pairs, int t_stride, int q_stride,
                  int match, int mismatch, int go, int ge, int indel_init,
                  int words_per_band, int n_words, int carry_cols,
-                 int* __restrict__ carry, int* __restrict__ ez,
-                 uint32_t* __restrict__ words) {
+                 int* carry, int* __restrict__ ez, uint32_t* __restrict__ words) {
+  extern __shared__ int smem[];
+  int* progress = smem;                  // [kMaxWarps]
+  int* red = smem + kMaxWarps;           // [5][kMaxWarps]
   const int lane = threadIdx.x & 31;
-  const int pair = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (pair >= n_pairs) return;  // whole warp leaves together
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int pair = blockIdx.x;
 
   const int tl = min(tlen[pair], t_stride);
   const int ql = min(qlen[pair], q_stride);
   const uint8_t* tp = tgt + static_cast<size_t>(pair) * t_stride;
   const uint8_t* qp = qry + static_cast<size_t>(pair) * q_stride;
-  int* c_a = carry + static_cast<size_t>(pair) * 2 * carry_cols;
+  int* c_a = kSharedCarry ? smem + kHead
+                          : carry + static_cast<size_t>(pair) * 2 * carry_cols;
   int* c_h = c_a + carry_cols;
   uint32_t* wp = words + static_cast<size_t>(pair) * n_words * kBand;
 
-  // row 0 of the DP (sw.cpp:29-40): H(0, c) and A(0, c) with the open bit
-  for (int c = lane; c < carry_cols; c += kBand) {
+  // row 0 of the DP (sw.cpp:29-40): H(0, c) and A(0, c) with the open bit;
+  // columns past ql keep it for good (no band writes them)
+  for (int c = threadIdx.x; c < carry_cols; c += blockDim.x) {
     const int bc = border(c, indel_init, go, ge);
     c_a[c] = kTraceback ? pack_a(bc - go, 0) : bc - go;
     c_h[c] = bc;
   }
-  __syncwarp();
+  if (threadIdx.x < kMaxWarps) progress[threadIdx.x] = 0;
+  __syncthreads();
 
   const int n_bands = (tl + kBand - 1) / kBand;
   const int n_steps = ql + kBand - 1;
+  // a warp's counter reads k * span + x once it has written carry columns
+  // 1 .. x of its k-th band
+  const int span = ql + 1;
   int mqe = kNeg, mqe_t = 1;             // this lane's last-column best
   int rmax = kNeg, rdist = kBig, rj = 1;  // last-row best (one lane)
 
-  for (int b = 0; b < n_bands; ++b) {
+  for (int b = warp, k = 0; b < n_bands; b += n_warps, ++k) {
+    const int* above = progress + (b + n_warps - 1) % n_warps;
+    const int above_done = b > 0 ? (b - 1) / n_warps * span : 0;
+    // carry columns 32*chunk + 2 + lane and query base 32*chunk + 1 + lane:
+    // what lane 0 takes on step 32*chunk + lane.  Chunk 0 also waits for
+    // column 1, which lane 0 reads before its first step; a later chunk
+    // waits only if it holds a column the band above writes (<= ql).
+    auto stage = [&](int chunk, int& sa, int& sh, int& sq) {
+      if (b > 0 && (chunk == 0 || kBand * chunk + 2 <= ql))
+        wait_for(above, above_done + min(kBand * chunk + kBand + 1, ql));
+      const int col = min(kBand * chunk + 2 + lane, carry_cols - 1);
+      const int qi = kBand * chunk + 1 + lane;
+      sa = c_a[col];
+      sh = c_h[col];
+      sq = qi < ql ? qp[qi] : 0;
+    };
+    int cur_a, cur_h, cur_q, nxt_a, nxt_h, nxt_q;
+    stage(0, cur_a, cur_h, cur_q);
+    stage(1, nxt_a, nxt_h, nxt_q);
+
     const int r = b * kBand + lane + 1;
     const int tch = r <= tl ? tp[r - 1] : 0;
     const int br = border(r, indel_init, go, ge);        // H(r, 0)
@@ -98,8 +198,15 @@ sw_banded_kernel(const uint8_t* __restrict__ tgt, const uint8_t* __restrict__ qr
     int h_pp = br_up;                                      // H(r-1, c-1)
     int qd = lane == 0 ? qp[0] : 0;                        // query[c-1]
     uint32_t word = 0;
+    uint32_t* wband = wp + static_cast<size_t>(b) * words_per_band * kBand + lane;
 
-    for (int t = 0; t < n_steps; ++t) {
+    // One step of the band.  kEdges: some lane's column is <= 0 or >= ql,
+    // so the column-0 boundary and both ScoreMax updates are checked;
+    // without it every column lies in 1 .. ql-1 and only the lane holding
+    // row tl (kLastRow) updates the last-row best.
+    auto step = [&](int t, int phase, auto edges, auto last_row) {
+      constexpr bool kEdges = decltype(edges)::value;
+      constexpr bool kLastRow = decltype(last_row)::value;
       const int c = t - lane + 1;
       const int e = kTraceback ? (a_p >> 1) : a_p;
       const int open_h = h_un - go;
@@ -118,22 +225,20 @@ sw_banded_kernel(const uint8_t* __restrict__ tgt, const uint8_t* __restrict__ qr
         const uint32_t nib =
             (diag >= ef_max ? 0u : (f >= e ? 1u : 2u)) |
             (static_cast<uint32_t>(a_p & 1) << 2) | (open_wins_h ? 0u : 8u);
-        const int phase = t & 7;
         word = phase == 0 ? nib : (word | (nib << (4 * phase)));
-        if (phase == 7 || t == n_steps - 1)
-          wp[static_cast<size_t>(b * words_per_band + (t >> 3)) * kBand + lane] = word;
+        if (phase == 7 || (kEdges && t == n_steps - 1)) wband[(t >> 3) * kBand] = word;
       }
-      if (c <= 0) {
+      if (kEdges && c <= 0) {
         // before the wavefront reaches this row: hold the column-0 boundary
         h = br;
         f = kNeg;
         a = a_fill;
-      } else {
-        if (c == ql && r <= tl && h >= mqe) {            // '>=': last row wins
+      } else if (kEdges || kLastRow) {
+        if (kEdges && c == ql && r <= tl && h >= mqe) {  // '>=': last row wins
           mqe = h;
           mqe_t = r;
         }
-        if (r == tl && c <= ql) {                        // '>' or closer to diagonal
+        if (r == tl && (!kEdges || c <= ql)) {           // '>' or closer to diagonal
           const int dist = abs(tl - c);
           if (h > rmax || (h == rmax && dist < rdist)) {
             rmax = h;
@@ -143,18 +248,21 @@ sw_banded_kernel(const uint8_t* __restrict__ tgt, const uint8_t* __restrict__ qr
         }
       }
 
-      // hand the new cells one lane down; lane 0 takes the carry instead
+      // hand the new cells one lane down; lane 0 takes the staged carry
       int a_sh = __shfl_sync(kFull, a, (lane + 31) & 31);
       int h_sh = __shfl_sync(kFull, h, (lane + 31) & 31);
       int q_sh = __shfl_up_sync(kFull, qd, 1);
-      if (lane == kBand - 1 && t - (kBand - 2) >= 1) {
+      const int a_in = __shfl_sync(kFull, cur_a, t & 31);
+      const int h_in = __shfl_sync(kFull, cur_h, t & 31);
+      const int q_in = __shfl_sync(kFull, cur_q, t & 31);
+      if (lane == kBand - 1 && (!kEdges || t >= kBand - 1)) {
         c_a[t - (kBand - 2)] = a;
         c_h[t - (kBand - 2)] = h;
       }
       if (lane == 0) {
-        a_sh = c_a[t + 2];
-        h_sh = c_h[t + 2];
-        q_sh = t + 1 < ql ? qp[t + 1] : 0;
+        a_sh = a_in;
+        h_sh = h_in;
+        q_sh = q_in;
       }
       h_un = h;
       f_un = f;
@@ -162,27 +270,54 @@ sw_banded_kernel(const uint8_t* __restrict__ tgt, const uint8_t* __restrict__ qr
       h_pp = h_p;
       h_p = h_sh;
       qd = q_sh;
-    }
-    __syncwarp();  // the next band's lane 0 reads what lane 31 wrote
+
+      if (phase == 7 && (t & 31) == 31) {
+        // a chunk ends: publish this band's columns, move to the staged
+        // chunk and stage the one after it
+        if (lane == kBand - 1) store_release(progress + warp, k * span + t - (kBand - 2));
+        cur_a = nxt_a;
+        cur_h = nxt_h;
+        cur_q = nxt_q;
+        if (t + 1 + kBand < n_steps) stage((t >> 5) + 2, nxt_a, nxt_h, nxt_q);
+      }
+    };
+    auto steady = [&](int& t, auto last_row) {
+      // the steps where every lane's column lies in 1 .. ql-1, 8 at a time
+      // so that the nibble's place in the word is known when compiling
+      for (; t + 8 <= ql - 1; t += 8) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) step(t + j, j, std::false_type{}, last_row);
+      }
+    };
+
+    int t = 0;
+    for (; t < min(kBand, n_steps); ++t) step(t, t & 7, std::true_type{}, std::true_type{});
+    if ((tl - 1) / kBand == b)
+      steady(t, std::true_type{});
+    else
+      steady(t, std::false_type{});
+    for (; t < n_steps; ++t) step(t, t & 7, std::true_type{}, std::true_type{});
+    if (lane == kBand - 1) store_release(progress + warp, k * span + ql);
+    __syncwarp();
   }
 
-  // warp reductions on total orders, so the tie rules survive any lane order
-  for (int off = 16; off > 0; off >>= 1) {
-    const int ov = __shfl_xor_sync(kFull, mqe, off);
-    const int ot = __shfl_xor_sync(kFull, mqe_t, off);
-    if (ov > mqe || (ov == mqe && ot > mqe_t)) {
-      mqe = ov;
-      mqe_t = ot;
-    }
-    const int rv = __shfl_xor_sync(kFull, rmax, off);
-    const int rd = __shfl_xor_sync(kFull, rdist, off);
-    const int rc = __shfl_xor_sync(kFull, rj, off);
-    if (rv > rmax || (rv == rmax && (rd < rdist || (rd == rdist && rc < rj)))) {
-      rmax = rv;
-      rdist = rd;
-      rj = rc;
-    }
+  reduce_warp(mqe, mqe_t, rmax, rdist, rj);
+  if (lane == 0) {
+    red[0 * kMaxWarps + warp] = mqe;
+    red[1 * kMaxWarps + warp] = mqe_t;
+    red[2 * kMaxWarps + warp] = rmax;
+    red[3 * kMaxWarps + warp] = rdist;
+    red[4 * kMaxWarps + warp] = rj;
   }
+  __syncthreads();
+  if (warp != 0) return;
+  const bool mine = lane < n_warps;
+  mqe = mine ? red[0 * kMaxWarps + lane] : kNeg;
+  mqe_t = mine ? red[1 * kMaxWarps + lane] : 1;
+  rmax = mine ? red[2 * kMaxWarps + lane] : kNeg;
+  rdist = mine ? red[3 * kMaxWarps + lane] : kBig;
+  rj = mine ? red[4 * kMaxWarps + lane] : 1;
+  reduce_warp(mqe, mqe_t, rmax, rdist, rj);
   if (lane == 0) {
     // the reference seeds its last-row scan with (mqe, mqe_t, qlen)
     const bool row_wins = rmax > mqe || (rmax == mqe && rdist < abs(mqe_t - ql));
@@ -195,33 +330,93 @@ sw_banded_kernel(const uint8_t* __restrict__ tgt, const uint8_t* __restrict__ qr
   }
 }
 
+template <bool kTraceback, bool kSharedCarry>
+cudaError_t resident_blocks(int threads, size_t smem, int* blocks) {
+  const auto kernel = sw_banded_kernel<kTraceback, kSharedCarry>;
+  if (kSharedCarry) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem);
+}
+
+// Whether the carry row goes to shared memory: when it fits the block's
+// opt-in limit and leaves each SM at least as many resident blocks as the
+// batch puts there with the row in global memory.
+template <bool kTraceback>
+cudaError_t carry_in_shared(int n_pairs, int carry_cols, int warps, bool* shared) {
+  int dev = 0, sms = 0, optin = 0, global_blocks = 0, shared_blocks = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const int threads = kBand * warps;
+  const size_t head = sizeof(int) * kHead;
+  if (e == cudaSuccess) e = resident_blocks<kTraceback, false>(threads, head, &global_blocks);
+  if (e != cudaSuccess) return e;
+  const size_t smem = head + sizeof(int) * 2 * static_cast<size_t>(carry_cols);
+  *shared = false;
+  if (smem > static_cast<size_t>(optin)) return cudaSuccess;
+  e = resident_blocks<kTraceback, true>(threads, smem, &shared_blocks);
+  const int wanted = std::min((n_pairs + sms - 1) / sms, global_blocks);
+  *shared = e == cudaSuccess && shared_blocks >= wanted;
+  return e;
+}
+
+template <bool kTraceback>
+cudaError_t launch(const void* tgt, const void* qry, const void* tlen,
+                   const void* qlen, int n_pairs, int t_stride, int q_stride,
+                   int match, int mismatch, int gap_open, int gap_ext,
+                   int indel_init, int words_per_band, int n_words,
+                   int carry_cols, int warps, void* carry, void* ez,
+                   void* words, cudaStream_t stream) {
+  bool shared = false;
+  const cudaError_t e = carry_in_shared<kTraceback>(n_pairs, carry_cols, warps, &shared);
+  if (e != cudaSuccess) return e;
+  const auto kernel = shared ? sw_banded_kernel<kTraceback, true>
+                             : sw_banded_kernel<kTraceback, false>;
+  kernel<<<n_pairs, kBand * warps,
+           sizeof(int) * (kHead + (shared ? 2 * static_cast<size_t>(carry_cols) : 0)), stream>>>(
+      static_cast<const uint8_t*>(tgt), static_cast<const uint8_t*>(qry),
+      static_cast<const int*>(tlen), static_cast<const int*>(qlen), n_pairs,
+      t_stride, q_stride, match, mismatch, gap_open, gap_ext, indel_init,
+      words_per_band, n_words, carry_cols, static_cast<int*>(carry),
+      static_cast<int*>(ez), static_cast<uint32_t*>(words));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// warps_per_pair is W, 1 to 32; carry holds (2, carry_cols) ints a pair,
+// used when the launcher keeps the carry row in global memory
 extern "C" int mgl_sw_banded(const void* tgt, const void* qry, const void* tlen,
                              const void* qlen, int n_pairs, int t_stride, int q_stride,
                              int match, int mismatch, int gap_open, int gap_ext,
                              int indel_init, int with_traceback, int words_per_band,
-                             int n_words, int carry_cols, void* carry, void* ez,
-                             void* words, void* stream) {
-  const int threads = 128;
-  const int blocks = (n_pairs * kBand + threads - 1) / threads;
-  auto s = static_cast<cudaStream_t>(stream);
-  if (with_traceback) {
-    sw_banded_kernel<true><<<blocks, threads, 0, s>>>(
-        static_cast<const uint8_t*>(tgt), static_cast<const uint8_t*>(qry),
-        static_cast<const int*>(tlen), static_cast<const int*>(qlen), n_pairs,
-        t_stride, q_stride, match, mismatch, gap_open, gap_ext, indel_init,
-        words_per_band, n_words, carry_cols, static_cast<int*>(carry),
-        static_cast<int*>(ez), static_cast<uint32_t*>(words));
-  } else {
-    sw_banded_kernel<false><<<blocks, threads, 0, s>>>(
-        static_cast<const uint8_t*>(tgt), static_cast<const uint8_t*>(qry),
-        static_cast<const int*>(tlen), static_cast<const int*>(qlen), n_pairs,
-        t_stride, q_stride, match, mismatch, gap_open, gap_ext, indel_init,
-        words_per_band, n_words, carry_cols, static_cast<int*>(carry),
-        static_cast<int*>(ez), nullptr);
-  }
-  return static_cast<int>(cudaGetLastError());
+                             int n_words, int carry_cols, int warps_per_pair,
+                             void* carry, void* ez, void* words, void* stream) {
+  if (warps_per_pair < 1 || warps_per_pair > kMaxWarps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto run = with_traceback ? launch<true> : launch<false>;
+  return static_cast<int>(run(tgt, qry, tlen, qlen, n_pairs, t_stride, q_stride, match,
+                              mismatch, gap_open, gap_ext, indel_init, words_per_band,
+                              n_words, carry_cols, warps_per_pair, carry, ez,
+                              with_traceback ? words : nullptr,
+                              static_cast<cudaStream_t>(stream)));
+}
+
+// 1 if mgl_sw_banded would keep this launch's carry row in shared memory,
+// 0 if in global memory, or minus a CUDA error code
+extern "C" int mgl_sw_banded_carry_in_shared(int n_pairs, int carry_cols,
+                                             int warps_per_pair, int with_traceback) {
+  if (warps_per_pair < 1 || warps_per_pair > kMaxWarps)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  bool shared = false;
+  const cudaError_t e =
+      with_traceback ? carry_in_shared<true>(n_pairs, carry_cols, warps_per_pair, &shared)
+                     : carry_in_shared<false>(n_pairs, carry_cols, warps_per_pair, &shared);
+  return e != cudaSuccess ? -static_cast<int>(e) : static_cast<int>(shared);
 }
 
 extern "C" const char* mgl_error_string(int code) {

@@ -28,6 +28,12 @@ from mgl_tpu_torch.ops.sw import (BAND, EZ_KEYS, banded_layout, plane_words,
 # the plane kernel's shared-memory ring: 7 int arrays of a power of two
 # >= min(T, Q) + 2 rows within the 227 KB a block may take
 PLANE_RING_MAX = 8192
+# the banded kernel's warps a pair: powers of two up to 32, the least that
+# puts WARPS_PER_SM warps (three a scheduler) on each SM that holds a pair
+# - fewer leave the step's latency open, more add ramp time but no
+# instruction slots (the W sweep of chip_smoke.py phase 8, PERF.md section 6)
+BANDED_WARPS = (1, 2, 4, 8, 16, 32)
+WARPS_PER_SM = 12
 
 
 def _check_pairs(fn: str, tgt, qry, tlen, qlen) -> None:
@@ -50,15 +56,49 @@ def _check_pairs(fn: str, tgt, qry, tlen, qlen) -> None:
                          f"{T} x {Q}")
 
 
+def banded_warps(n_pairs: int, n_bands: int, sm_count: int) -> int:
+    """Warps a pair for the banded kernel: the least power of two W (1 to
+    32, at most ``n_bands`` rounded down to a power of two) for which
+    ``n_pairs * W`` warps put WARPS_PER_SM on each SM that holds a pair -
+    one block a pair, so ``min(n_pairs, sm_count)`` SMs."""
+    cap = min(BANDED_WARPS[-1], 1 << (max(n_bands, 1).bit_length() - 1))
+    target = min(n_pairs, sm_count) * WARPS_PER_SM
+    w = 1
+    while w < cap and n_pairs * w < target:
+        w *= 2
+    return w
+
+
+def banded_carry_in_shared(n_pairs: int, q: int, warps_per_pair: int,
+                           with_traceback: bool, device) -> bool:
+    """Whether ``sw_banded`` keeps the carry row of n_pairs pairs of
+    queries padded to q in shared memory on ``device`` (a CUDA device):
+    the launcher's choice, from the block's opt-in limit and the blocks
+    an SM holds either way."""
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        got = lib.mgl_sw_banded_carry_in_shared(
+            n_pairs, q + BAND + 2, warps_per_pair, int(with_traceback))
+    if got < 0:
+        _build.check_launch(lib, -got, "sw_banded")
+    return bool(got)
+
+
 def sw_banded(tgt: torch.Tensor, qry: torch.Tensor, tlen: torch.Tensor,
               qlen: torch.Tensor, match: int, mismatch: int, gap_open: int,
-              gap_ext: int, *, indel_init: bool, with_traceback: bool = True):
+              gap_ext: int, *, indel_init: bool, with_traceback: bool = True,
+              warps_per_pair: int | None = None):
     """Banded SW over B pairs: (ez (6, B) int32, words (B, G, 32) int32 or
     None).  ``tgt`` (B, T) / ``qry`` (B, Q) uint8 zero-padded, ``tlen`` /
     ``qlen`` (B,) int32 with 1 <= tlen <= T and 1 <= qlen <= Q; layout as
     :func:`mgl_tpu_torch.ops.sw.banded_layout`.  Traceback and score-only
-    mode are one kernel with a compile-time flag."""
+    mode are one kernel with a compile-time flag.  ``warps_per_pair``
+    forces W (one of BANDED_WARPS; by default :func:`banded_warps`): every
+    W gives the same bits."""
     _check_pairs("sw_banded", tgt, qry, tlen, qlen)
+    if warps_per_pair is not None and warps_per_pair not in BANDED_WARPS:
+        raise ValueError(f"warps_per_pair: one of {BANDED_WARPS}, got "
+                         f"{warps_per_pair}")
     if tgt.device.type == "cpu":
         return sw_banded_plain(tgt, qry, tlen, qlen, match, mismatch,
                                gap_open, gap_ext, indel_init=indel_init,
@@ -66,10 +106,16 @@ def sw_banded(tgt: torch.Tensor, qry: torch.Tensor, tlen: torch.Tensor,
     B, T = tgt.shape
     Q = qry.shape[1]
     nb, wpb = banded_layout(T, Q)
+    if nb * (Q + 1) >= 2 ** 31:
+        raise ValueError(f"sw_banded counts a pair's progress in int32: "
+                         f"{T} x {Q} is too large")
+    dev = tgt.device
+    if warps_per_pair is None:
+        warps_per_pair = banded_warps(
+            B, nb, torch.cuda.get_device_properties(dev).multi_processor_count)
     carry_cols = Q + BAND + 2
     tgt, qry = tgt.contiguous(), qry.contiguous()
     tlen, qlen = tlen.contiguous(), qlen.contiguous()
-    dev = tgt.device
     ez = torch.empty((6, B), dtype=torch.int32, device=dev)
     carry = torch.empty((B, 2, carry_cols), dtype=torch.int32, device=dev)
     words = (torch.empty((B, nb * wpb, BAND), dtype=torch.int32, device=dev)
@@ -80,7 +126,7 @@ def sw_banded(tgt: torch.Tensor, qry: torch.Tensor, tlen: torch.Tensor,
             tgt.data_ptr(), qry.data_ptr(), tlen.data_ptr(), qlen.data_ptr(),
             B, T, Q, int(match), int(mismatch), int(gap_open), int(gap_ext),
             int(indel_init), int(with_traceback), wpb, nb * wpb, carry_cols,
-            carry.data_ptr(), ez.data_ptr(),
+            warps_per_pair, carry.data_ptr(), ez.data_ptr(),
             words.data_ptr() if words is not None else None,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(lib, code, "sw_banded")

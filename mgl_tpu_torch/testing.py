@@ -169,12 +169,18 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     after ``warmup`` calls."""
     for _ in range(warmup):
         fn()
+    return timed_calls(fn, iters)[1]
+
+
+def timed_calls(fn, iters: int = 1):
+    """(the last call's output, mean device ms of ``iters`` calls of fn()
+    by CUDA events)."""
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
-        fn()
+        out = fn()
     stop.record()
     stop.synchronize()
-    return start.elapsed_time(stop) / iters
+    return out, start.elapsed_time(stop) / iters
