@@ -171,15 +171,18 @@ def main() -> int:
     from mgl_tpu_torch.kernels import pairhmm_cuda as ph
     from mgl_tpu_torch.kernels import sw_cuda
     from mgl_tpu_torch.ops.sw import EZ_KEYS, banded_layout, compute_score_max
-    from mgl_tpu_torch.ops.pairhmm import (normalize, pair_likelihoods,
+    from mgl_tpu_torch.ops.pairhmm import (compute_haplotype_similarities,
+                                           normalize, pair_likelihoods,
                                            shared_forward_plain,
                                            use_shared_kernel)
     from mgl_tpu_torch.tables import CTX_F32, CTX_F64, MIN_ACCEPTED
     from mgl_tpu_torch.testing import (ACGT, cuda_ms, engine_region,
                                        golden_groups, golden_read,
-                                       load_golden, sw_pairs, sw_tensors,
-                                       timed_calls, traceback_mismatches,
-                                       u8)
+                                       load_golden, long_hap_set,
+                                       queued_ms, shared_on_and_off, snp,
+                                       sw_pairs,
+                                       sw_tensors, timed_calls,
+                                       traceback_mismatches, u8)
 
     kernels = {"sw_banded": sw_cuda.sw_banded,
                "pairhmm_banded_f32": ph.pairhmm_banded_f32,
@@ -299,11 +302,8 @@ def main() -> int:
     # prefixes, a duplicate right after its twin (a zero-length segment),
     # resets and a hap under 8 bases, with sharing on and off
     base = rng.choice(ACGT, 300)
-    sh_haps = [base]
-    for pos in (200, 150, 220, 240, 100, 260):
-        h = base.copy()
-        h[pos] = ACGT[(int(np.searchsorted(ACGT, h[pos])) + 1) % 4]
-        sh_haps.append(h)
+    sh_haps = [base] + [snp(base, pos)
+                        for pos in (200, 150, 220, 240, 100, 260)]
     sh_haps.insert(3, sh_haps[2].copy())
     sh_haps += [rng.choice(ACGT, 7), base[:250].copy()]
     sh_reads = []
@@ -315,22 +315,36 @@ def main() -> int:
                              else rng.choice(ACGT, n), q=q, i=q, d=q,
                              c=np.full(n, 10, np.uint8)))
     sh_reads, sh_haps = normalize(sh_reads, sh_haps)
-    sh_on = ph.stage_shared(sh_reads, sh_haps, dev)
-    hstream, segtab = ph.segment_table(sh_haps,
-                                       np.zeros(len(sh_haps), np.int64))
-    sh_off = (*sh_on[:3], torch.from_numpy(hstream).to(dev),
-              torch.from_numpy(segtab).to(dev), sh_on[5])
-    outs = []
-    for a in (sh_on, sh_off):
-        got = ph.pairhmm_shared_f32(*a)
-        want = shared_forward_plain(*a)
-        torch.cuda.synchronize()
-        e = float((got.double() - want.double()).abs().max())
-        if not torch.equal(got, want):
-            raise AssertionError(f"shared kernel != plain: {e}")
-        outs.append(got)
-    if not torch.equal(*outs):
-        raise AssertionError("shared kernel: sharing on != sharing off")
+    # every W the kernel takes, sharing on and off: 200 reads of <= 5 bands
+    # (carry row in shared memory), then 300 reads of 60 bp against 24
+    # haps of 1 kb with resets (a row of ~129 KB: global memory)
+    sh_warps = (None, *range(1, ph.SHARED_WARPS_MAX + 1))
+    lg_reads, lg_haps = normalize(*long_hap_set(5, read_len=60))
+    placed = []
+    for label, reads_, haps_, warps in (
+            ("ragged", sh_reads, sh_haps, sh_warps),
+            ("long hap set", lg_reads, lg_haps, (None, 1, 2))):
+        outs = []
+        for a in shared_on_and_off(reads_, haps_, dev):
+            want = shared_forward_plain(*a)
+            for w in warps:
+                got = ph.pairhmm_shared_f32(*a, warps_per_read=w)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    e = float((got.double() - want.double()).abs().max())
+                    raise AssertionError(f"shared kernel != plain ({label}, "
+                                         f"W={w}): {e}")
+            placed.append((label, len(reads_), a[3].shape[0], {
+                "shared" if ph.shared_carry_in_shared(
+                    len(reads_), a[3].shape[0], w, dev) else "global"
+                for w in warps if w is not None}))
+            outs.append(want)
+        if not torch.equal(*outs):
+            raise AssertionError(f"shared kernel ({label}): sharing on != "
+                                 f"sharing off")
+    if set().union(*(where for *_, where in placed)) != {"shared", "global"}:
+        raise AssertionError(f"shared kernel: the carry row did not take "
+                             f"both placements: {placed}")
     log(f"[2 kernel==plain, tolerance 0 (bit for bit)] SW {len(targets)} "
         f"pairs 40-250 bp x 4 strategies: banded x 2 modes at the wrapper's "
         f"W and at W = {', '.join(map(str, sw_cuda.BANDED_WARPS))} warps a "
@@ -341,7 +355,12 @@ def main() -> int:
         f"+ {len(rnd_pairs)} random ragged pairs: equal; PairHMM f64 on {len(golden)} golden rows: "
         f"equal; shared on {len(sh_reads)} reads of 50-160 bp x "
         f"{len(sh_haps)} haps (positions "
-        f"{sh_on[4][1].tolist()}), sharing on and off: equal, and on == off")
+        f"{compute_haplotype_similarities(sh_haps)[0].tolist()}) at the "
+        f"wrapper's W and W = 1.."
+        f"{ph.SHARED_WARPS_MAX}, and {len(lg_reads)} reads of 60 bp x "
+        f"{len(lg_haps)} haps of 1 kb at W = 1, 2, sharing on and off: "
+        f"equal, and on == off; carry rows (set, reads, stream slots, "
+        f"placement) {placed}")
 
     # ---- phase 3: SW golden through the entry point -----------------------
     sw_rows = load_golden("sw_golden.jsonl")
@@ -691,29 +710,52 @@ def main() -> int:
             f"{cells / p_ms / 1e6:.2f} GCUPS; bound {bounds[name][0]:.4f} ms "
             f"({bounds[name][1]}); equal; card {card}")
 
+    # the shared kernel at the region shape: the wrapper's W against the
+    # plain version, then the sweep over every W up to the read's bands,
+    # each bit-equal to it, beside the per-pair f32 kernel on the product;
+    # both timed as time_pairhmm_shared times them (testing.queued_ms)
     a_sh = ph.stage_shared(reads0, haps0, dev)
-    k_ms = cuda_ms(lambda: ph.pairhmm_shared_f32(*a_sh), 5)
+    n_sh = len(reads0)
+    sh_bands = (a_sh[0].shape[-1] - 2) // 32
+    chosen = ph.shared_warps(n_sh, sh_bands, sms)
     p_ms = cuda_ms(lambda: shared_forward_plain(*a_sh), 1, warmup=0)
-    got, want = ph.pairhmm_shared_f32(*a_sh), shared_forward_plain(*a_sh)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("shared kernel != plain at the region shape")
+    want = shared_forward_plain(*a_sh)
     stream_cols = int(a_sh[4][0, -1] + a_sh[4][3, -1] - 31)
     swept = int(a_sh[2].long().sum()) * stream_cols
     product = sum(len(r["bases"]) for r in reads0) * sum(map(len, haps0))
-    ms["pairhmm_shared_f32"], plain_ms["pairhmm_shared_f32"] = k_ms, p_ms
     bounds["pairhmm_shared_f32"] = bound(
         swept * FLOPS_PER_CELL, "f32",
-        nbytes(*a_sh[:5]) + got.numel() * got.element_size())
-    big_ms = cuda_ms(lambda: ph.pairhmm_banded_f32(*a32_big), 5)
-    log(f"    pairhmm_shared_f32 512 reads x 12 haps (stream of {stream_cols} "
-        f"of {sum(map(len, haps0))} columns): kernel {k_ms:.3f} ms = "
-        f"{product / k_ms / 1e6:.2f} GCUPS over the product's {product} cells, "
-        f"{swept / k_ms / 1e6:.2f} over the {swept} swept cells; plain torch "
-        f"{p_ms:.3f} ms; bound {bounds['pairhmm_shared_f32'][0]:.4f} ms "
-        f"({bounds['pairhmm_shared_f32'][1]}); equal; the per-pair f32 kernel "
-        f"over the same product {big_ms:.3f} ms; occupancy 4 warps of 64 a "
-        f"SM (one warp a read); card {card}")
+        nbytes(*a_sh[:5]) + want.numel() * want.element_size())
+    big_ms = queued_ms(lambda: ph.pairhmm_banded_f32(*a32_big), 5)
+    regs = _build.kernel_resources("pairhmm_shared_kernel")
+    log(f"    pairhmm_shared_f32 {n_sh} reads x {len(haps0)} haps (stream of "
+        f"{stream_cols} of {sum(map(len, haps0))} columns, {sh_bands} bands "
+        f"a read): plain torch {p_ms:.3f} ms; bound "
+        f"{bounds['pairhmm_shared_f32'][0]:.4f} ms "
+        f"({bounds['pairhmm_shared_f32'][1]}); the per-pair f32 kernel over "
+        f"the same product {big_ms:.3f} ms; registers and spills "
+        f"{[(r['registers'], r.get('spill_stores'), r.get('spill_loads')) for r in regs]}"
+        f" (one instance a carry placement); card {card}")
+    for w in [chosen] + [w for w in range(1, sh_bands + 1) if w != chosen]:
+        k_ms = queued_ms(lambda: ph.pairhmm_shared_f32(
+            *a_sh, warps_per_read=w), 5)
+        got = ph.pairhmm_shared_f32(*a_sh, warps_per_read=w)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"shared kernel W={w} != plain at the "
+                                 f"region shape")
+        if w == chosen:
+            ms["pairhmm_shared_f32"] = k_ms
+            plain_ms["pairhmm_shared_f32"] = p_ms
+        carry = ("shared" if ph.shared_carry_in_shared(
+            n_sh, a_sh[3].shape[0], w, dev) else "global")
+        log(f"      W={w}{' (chosen)' if w == chosen else ''}: kernel "
+            f"{k_ms:.3f} ms = {product / k_ms / 1e6:.2f} GCUPS over the "
+            f"product's {product} cells, {swept / k_ms / 1e6:.2f} over the "
+            f"{swept} swept cells; bound share "
+            f"{bounds['pairhmm_shared_f32'][0] / k_ms:.3f}; {n_sh} blocks of "
+            f"{w} warps, {n_sh * w / sms:.1f} warps an SM; carry row in "
+            f"{carry} memory; equal to plain; card {card}")
 
     if any(m == "jax" or m.startswith(("jax.", "mgl_tpu."))
            or m == "mgl_tpu" for m in sys.modules):

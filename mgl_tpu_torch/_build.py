@@ -21,6 +21,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -28,11 +29,16 @@ _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "mgl_tpu_torch"
 
+# The shared PairHMM kernel's most warps a block, its __launch_bounds__:
+# at 24 (768 threads) ptxas keeps a lane's state in registers without
+# spills, where 32 warps held it to 64 registers and spilled.
+SHARED_MAX_WARPS = 24
 # --fmad=false: no contraction of a*b+c, so the PairHMM kernels round like
 # torch's elementwise ops; no -ftz, so f32 denormals are kept.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    f"-DMGL_SHARED_MAX_WARPS={SHARED_MAX_WARPS}",
 )
 # no -march=native: the library must load on any x86-64 host it is built on
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
@@ -46,8 +52,9 @@ _ENTRIES = {
     "mgl_sw_banded_carry_in_shared": [_I] * 4,
     "mgl_pairhmm_banded_f32": [_P] * 8 + [_I] * 4 + [_P] * 3,
     "mgl_pairhmm_banded_f64": [_P] * 8 + [_I] * 4 + [_P] * 3,
-    "mgl_pairhmm_shared_f32": [_P] * 5 + [_I] * 4 + [ctypes.c_float]
-                              + [_P] * 3,
+    "mgl_pairhmm_shared_f32": [_P] * 5 + [_I] * 4
+                              + [ctypes.c_float, _I, _I] + [_P] * 3,
+    "mgl_pairhmm_shared_carry_in_shared": [_I] * 3,
     "mgl_sw_plane": [_P] * 4 + [_I] * 11 + [_P] * 3,
     "mgl_pairhmm_plane_f32": [_P] * 8 + [_I] * 3 + [_P] * 2,
 }
@@ -151,6 +158,35 @@ def build(so: pathlib.Path) -> None:
     """Compile every csrc/*.cu into ``so`` with nvcc."""
     _compile(_nvcc(), NVCC_FLAGS, [p for p in sources() if p.suffix == ".cu"],
              so)
+
+
+def kernel_resources(fragment: str) -> list[dict]:
+    """Registers and spills of each compiled kernel whose mangled name
+    holds ``fragment``, read from the kernel library's build log (nvcc's
+    ``-Xptxas -v`` report): dicts of entry, registers, spill_stores and
+    spill_loads (bytes).  Empty if the library was built elsewhere."""
+    log = library_path().with_suffix(".log")
+    if not log.exists():
+        return []
+    found: dict[str, dict] = {}
+    current = None
+    for line in log.read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            current = found.setdefault(m.group(1), {"entry": m.group(1)})
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            current["spill_stores"] = int(m.group(1))
+            current["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+    return [v for k, v in found.items() if fragment in k and "registers" in v]
 
 
 def _bind(so: pathlib.Path, entries: dict, restype) -> ctypes.CDLL:

@@ -64,6 +64,8 @@
 
 #include <cuda_runtime.h>
 
+#include "band_pipeline.cuh"
+
 namespace {
 
 constexpr int kBand = 32;
@@ -83,22 +85,6 @@ __device__ __forceinline__ int border(int k, int indel_init, int go, int ge) {
 __device__ __forceinline__ int pack_a(int v, int ext_bit) {
   return static_cast<int>((static_cast<unsigned>(v) << 1) |
                           static_cast<unsigned>(ext_bit));
-}
-
-__device__ __forceinline__ int load_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.cta.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_release(int* p, int v) {
-  asm volatile("st.release.cta.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
-// every lane waits until the band above has published `target`
-__device__ __forceinline__ void wait_for(const int* counter, int target) {
-  while (load_acquire(counter) < target) __nanosleep(64);
-  __syncwarp();
 }
 
 // max on (value, row) for the last column; on (value, -distance, -column)
@@ -330,38 +316,13 @@ sw_banded_kernel(const uint8_t* __restrict__ tgt, const uint8_t* __restrict__ qr
   }
 }
 
-template <bool kTraceback, bool kSharedCarry>
-cudaError_t resident_blocks(int threads, size_t smem, int* blocks) {
-  const auto kernel = sw_banded_kernel<kTraceback, kSharedCarry>;
-  if (kSharedCarry) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem);
-}
-
-// Whether the carry row goes to shared memory: when it fits the block's
-// opt-in limit and leaves each SM at least as many resident blocks as the
-// batch puts there with the row in global memory.
+// Whether the carry row goes to shared memory (band_pipeline.cuh)
 template <bool kTraceback>
-cudaError_t carry_in_shared(int n_pairs, int carry_cols, int warps, bool* shared) {
-  int dev = 0, sms = 0, optin = 0, global_blocks = 0, shared_blocks = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const int threads = kBand * warps;
-  const size_t head = sizeof(int) * kHead;
-  if (e == cudaSuccess) e = resident_blocks<kTraceback, false>(threads, head, &global_blocks);
-  if (e != cudaSuccess) return e;
-  const size_t smem = head + sizeof(int) * 2 * static_cast<size_t>(carry_cols);
-  *shared = false;
-  if (smem > static_cast<size_t>(optin)) return cudaSuccess;
-  e = resident_blocks<kTraceback, true>(threads, smem, &shared_blocks);
-  const int wanted = std::min((n_pairs + sms - 1) / sms, global_blocks);
-  *shared = e == cudaSuccess && shared_blocks >= wanted;
-  return e;
+cudaError_t sw_carry_in_shared(int n_pairs, int carry_cols, int warps, bool* shared) {
+  return carry_in_shared(sw_banded_kernel<kTraceback, false>,
+                         sw_banded_kernel<kTraceback, true>, n_pairs, kBand * warps,
+                         sizeof(int) * kHead,
+                         sizeof(int) * 2 * static_cast<size_t>(carry_cols), shared);
 }
 
 template <bool kTraceback>
@@ -372,7 +333,7 @@ cudaError_t launch(const void* tgt, const void* qry, const void* tlen,
                    int carry_cols, int warps, void* carry, void* ez,
                    void* words, cudaStream_t stream) {
   bool shared = false;
-  const cudaError_t e = carry_in_shared<kTraceback>(n_pairs, carry_cols, warps, &shared);
+  const cudaError_t e = sw_carry_in_shared<kTraceback>(n_pairs, carry_cols, warps, &shared);
   if (e != cudaSuccess) return e;
   const auto kernel = shared ? sw_banded_kernel<kTraceback, true>
                              : sw_banded_kernel<kTraceback, false>;
@@ -414,8 +375,8 @@ extern "C" int mgl_sw_banded_carry_in_shared(int n_pairs, int carry_cols,
     return -static_cast<int>(cudaErrorInvalidValue);
   bool shared = false;
   const cudaError_t e =
-      with_traceback ? carry_in_shared<true>(n_pairs, carry_cols, warps_per_pair, &shared)
-                     : carry_in_shared<false>(n_pairs, carry_cols, warps_per_pair, &shared);
+      with_traceback ? sw_carry_in_shared<true>(n_pairs, carry_cols, warps_per_pair, &shared)
+                     : sw_carry_in_shared<false>(n_pairs, carry_cols, warps_per_pair, &shared);
   return e != cudaSuccess ? -static_cast<int>(e) : static_cast<int>(shared);
 }
 

@@ -1,0 +1,9 @@
+"""The port's kernel wrappers."""
+
+# The warps a block-a-pair kernel aims to put on each SM that holds a
+# block (three a scheduler), when it splits a pair's or a read's bands
+# across the warps of its block: fewer leave the dependent step's latency
+# open, more add ramp time but no instruction slots (the W sweeps of
+# chip_smoke.py phase 8 and mgl_tpu_torch.time_pairhmm_shared, PERF.md
+# section 6).  sw_cuda.banded_warps and pairhmm_cuda.shared_warps use it.
+WARPS_PER_SM = 12

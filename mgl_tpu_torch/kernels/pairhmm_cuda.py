@@ -22,6 +22,7 @@ _read_planes_device``), which are plain torch ops, not a kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable
 
 import numpy as np
@@ -29,6 +30,7 @@ import torch
 
 from mgl_tpu_torch import _build
 from mgl_tpu_torch.device import resolve_device
+from mgl_tpu_torch.kernels import WARPS_PER_SM
 from mgl_tpu_torch.ops.pairhmm import (BAND, N_PLANES,
                                        compute_haplotype_similarities,
                                        forward_plain, shared_forward_plain)
@@ -39,6 +41,9 @@ _TRACKS = ("q", "i", "d", "c", "bases")
 # 9 floats a matrix row (M, X, Y of three diagonals) within the 227 KB of
 # shared memory a block may take
 PLANE_ROWS_MAX = 232_448 // (9 * 4)
+# the shared kernel's warps a read: 1 to SHARED_WARPS_MAX, aiming at
+# WARPS_PER_SM warps on each SM that holds a read
+SHARED_WARPS_MAX = _build.SHARED_MAX_WARPS
 
 
 def _check(name, x, dtype, shape, device):
@@ -141,15 +146,66 @@ def pairhmm_plane_f32(planes, rchar, rslen, haps, haplen, y_init, ridx,
     return out
 
 
+def shared_warps(n_reads: int, n_bands: int, sm_count: int) -> int:
+    """Warps a read for the shared kernel (one block a read, warp w runs
+    bands w, w+W, ...).  The least W that puts WARPS_PER_SM warps
+    on each SM holding a read, at most the bands, then the bands shared
+    out evenly over as few rounds as that W allows (a warp runs
+    ceil(n_bands / W) bands one after another, so 5 bands take W = 5, not
+    4), and at most SHARED_WARPS_MAX."""
+    n_bands = max(n_bands, 1)
+    target = min(n_reads, sm_count) * WARPS_PER_SM
+    w = min(n_bands, SHARED_WARPS_MAX, -(-target // max(n_reads, 1)))
+    rounds = max(n_bands // w, -(-n_bands // SHARED_WARPS_MAX))
+    return -(-n_bands // rounds)
+
+
+def shared_carry_in_shared(n_reads: int, stream_cols: int,
+                           warps_per_read: int, device) -> bool:
+    """Whether :func:`pairhmm_shared_f32` keeps the carry row of n_reads
+    reads against a stream of ``stream_cols`` slots (``hstream``'s length)
+    in shared memory on ``device`` (a CUDA device): the launcher's choice,
+    from the block's opt-in limit and the blocks an SM holds either way,
+    asked once a shape and device."""
+    dev = torch.device(device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return _carry_in_shared(index, n_reads, stream_cols, warps_per_read)
+
+
+@functools.lru_cache(maxsize=1024)
+def _carry_in_shared(index: int, n_reads: int, stream_cols: int,
+                     warps_per_read: int) -> bool:
+    lib = _build.load_library()
+    with torch.cuda.device(index):
+        got = lib.mgl_pairhmm_shared_carry_in_shared(n_reads, stream_cols,
+                                                     warps_per_read)
+    if got < 0:
+        _build.check_launch(lib, -got, "pairhmm_shared_f32")
+    return bool(got)
+
+
 def pairhmm_shared_f32(planes, rchar, rslen, hstream, segtab,
-                       y_shared: float) -> torch.Tensor:
+                       y_shared: float, warps_per_read: int | None = None
+                       ) -> torch.Tensor:
     """(n_reads, n_haps) float32 forward scores of every read against every
     hap of one hap set, scaled by ``y_shared`` = 2^120 / COLS_MAX (the
     caller rescales by COLS_MAX / haplen).  ``planes``, ``rchar``,
     ``rslen`` as :func:`pairhmm_banded_f32` in CTX_F32; ``hstream`` (S+34,)
     int32 one-hot distinct-suffix stream and ``segtab`` (5, n_haps) int32
     as :func:`segment_table` builds them (not checked on the card: that
-    would synchronise)."""
+    would synchronise).
+
+    One block a read: its bands run side by side on ``warps_per_read``
+    warps, pipelined through one carry row, which lies in shared memory
+    where that costs the launch no resident blocks, else in global memory
+    (the launcher's query :func:`shared_carry_in_shared`).  By default
+    :func:`shared_warps` picks W; forcing one (1 to SHARED_WARPS_MAX)
+    gives the same bits."""
+    if warps_per_read is not None and not (
+            isinstance(warps_per_read, int)
+            and 1 <= warps_per_read <= SHARED_WARPS_MAX):
+        raise ValueError(f"warps_per_read: 1 to {SHARED_WARPS_MAX}, got "
+                         f"{warps_per_read!r}")
     n_r, _, rows = planes.shape
     n_h = segtab.shape[1]
     cols = hstream.shape[0]
@@ -169,16 +225,28 @@ def pairhmm_shared_f32(planes, rchar, rslen, hstream, segtab,
     if n_r == 0 or n_h == 0:
         raise ValueError(f"the shared kernel needs reads and haps, got "
                          f"{n_r} reads and {n_h} haps")
+    n_bands = (rows - 2) // BAND
+    if n_bands * (cols + 1) >= 2 ** 31:
+        raise ValueError(f"the shared kernel counts a read's progress in "
+                         f"int32: {n_bands} bands x {cols} slots is too large")
+    if warps_per_read is None:
+        warps_per_read = shared_warps(
+            n_r, n_bands,
+            torch.cuda.get_device_properties(dev).multi_processor_count)
     args = [x.contiguous() for x in (planes, rchar, rslen, hstream, segtab)]
     out = torch.zeros((n_r, n_h), dtype=torch.float32, device=dev)
-    # the (U, W) row that crosses bands, one slot per stream column
-    carry = torch.zeros((n_r, 2, cols), dtype=torch.float32, device=dev)
+    in_shared = shared_carry_in_shared(n_r, cols, warps_per_read, dev)
+    # else the (U, W) row that crosses bands lies in global memory, one
+    # (U, W) pair a stream slot, never read unwritten
+    carry = (None if in_shared else
+             torch.empty((n_r, cols, 2), dtype=torch.float32, device=dev))
     lib = _build.load_library()
     with torch.cuda.device(dev):
         code = lib.mgl_pairhmm_shared_f32(
             *(a.data_ptr() for a in args), n_r, rows, n_h, cols,
-            ctypes.c_float(y_shared), carry.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            ctypes.c_float(y_shared), warps_per_read, int(in_shared),
+            None if carry is None else carry.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(lib, code, "mgl_pairhmm_shared_f32")
     pairhmm_shared_f32.launches += 1
     return out
@@ -349,7 +417,10 @@ def stage_shared(reads: list[dict], haps: list[np.ndarray], device
     the hap set (pairhmm_pallas.py:893 forward_scores_shared): read planes
     in CTX_F32, the stream and segment table of the haps' shared
     prefixes, and y_shared = float32(2^120) / float32(COLS_MAX)
-    (:949).  Reads' bases and haps are already normalized (BASE_NORM)."""
+    (:949).  The stream and table are the same for every read: on the card
+    each band stages the stream's next 32 slots a chunk ahead, so it is
+    shipped once and read from cache.  Reads' bases and haps are already
+    normalized (BASE_NORM)."""
     positions, _, cols_max = compute_haplotype_similarities(haps)
     hstream, segtab = segment_table(haps, positions)
     y_shared = float(np.float32(CTX_F32.initial_constant)

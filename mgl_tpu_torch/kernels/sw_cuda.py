@@ -20,6 +20,7 @@ import torch
 from mgl_tpu_torch import _build
 from mgl_tpu_torch.core.params import OverhangStrategy, SWParameters
 from mgl_tpu_torch.device import resolve_device
+from mgl_tpu_torch.kernels import WARPS_PER_SM
 from mgl_tpu_torch.native import cigar_decode_bulk, cigar_decode_bulk_banded
 from mgl_tpu_torch.ops.sw import (BAND, EZ_KEYS, banded_layout, plane_words,
                                   sw_banded_plain, sw_plane_plain,
@@ -29,11 +30,8 @@ from mgl_tpu_torch.ops.sw import (BAND, EZ_KEYS, banded_layout, plane_words,
 # >= min(T, Q) + 2 rows within the 227 KB a block may take
 PLANE_RING_MAX = 8192
 # the banded kernel's warps a pair: powers of two up to 32, the least that
-# puts WARPS_PER_SM warps (three a scheduler) on each SM that holds a pair
-# - fewer leave the step's latency open, more add ramp time but no
-# instruction slots (the W sweep of chip_smoke.py phase 8, PERF.md section 6)
+# puts WARPS_PER_SM warps on each SM that holds a pair
 BANDED_WARPS = (1, 2, 4, 8, 16, 32)
-WARPS_PER_SM = 12
 
 
 def _check_pairs(fn: str, tgt, qry, tlen, qlen) -> None:

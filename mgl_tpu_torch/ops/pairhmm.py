@@ -144,7 +144,11 @@ def shared_forward_plain(planes: torch.Tensor, rchar: torch.Tensor,
     <= pos_{j+1}; it is saved and restored as hap j+1's start, with lane
     0's look-ahead (u_p, w_p from the band above, hd) taken from hap j+1's
     own stream.  The (U, W) row that crosses bands is indexed by stream
-    slot: slot base_j + o holds column pos_j + 1 + o."""
+    slot: slot base_j + o holds column pos_j + 1 + o.  Past a segment's
+    end lane 0's look-ahead reads (0, 0), not the next segment's slots:
+    those columns lie above len_j and reach no summed cell and no
+    checkpoint, and the kernel, whose bands run side by side, need not
+    wait for them."""
     dev = planes.device
     n, _, rows = planes.shape
     n_h = segtab.shape[1]
@@ -171,11 +175,14 @@ def shared_forward_plain(planes: torch.Tensor, rchar: torch.Tensor,
         rch = rchar[:, r]
         is_last = r[None, :] == rl[:, None]
 
-        def above(slot):
+        def above(slot, end):
             """(U, W) of the row above lane 0 at stream ``slot``: row 0's
-            (yInit * pGapM[1], 0) in band 0, else the carry."""
+            (yInit * pGapM[1], 0) in band 0, else the carry, or (0, 0)
+            from the segment's ``end`` on."""
             if b == 0:
                 return u0, zcol
+            if slot >= end:
+                return zcol, zcol
             return carry_u[:, slot], carry_w[:, slot]
 
         def hcol(slot):
@@ -190,7 +197,8 @@ def shared_forward_plain(planes: torch.Tensor, rchar: torch.Tensor,
                 u_pp = _lane0(zero, u0 if b == 0 else zcol)
             else:
                 m_un, y_un, w_p, u_p, u_pp, hd, acc = chk
-            ua, wa = above(base)
+            end = base + hl - pos
+            ua, wa = above(base, end)
             u_p, w_p = _lane0(u_p, ua), _lane0(w_p, wa)
             hd = _lane0(hd, hcol(base))
             ts = T if tsv < 0 else min(max(tsv, 0), T)
@@ -211,7 +219,7 @@ def shared_forward_plain(planes: torch.Tensor, rchar: torch.Tensor,
                 if t >= BAND - 1 and pos + t + 2 - BAND <= hl:
                     carry_u[:, base + t + 1 - BAND] = u[:, -1]
                     carry_w[:, base + t + 1 - BAND] = w[:, -1]
-                ua, wa = above(base + t + 1)
+                ua, wa = above(base + t + 1, end)
                 m_un, y_un, u_pp = m, y, u_p
                 u_p, w_p = _shift_down(u, ua), _shift_down(w, wa)
                 hd = _shift_down(hd, hcol(base + t + 1))

@@ -48,7 +48,8 @@ STAGES = ((api, "bucket_pairs"), (api, "_checked_reads"),
           (pairhmm_cuda, "compute_haplotype_similarities"),
           (pairhmm_cuda, "segment_table"), (pairhmm_cuda, "stage_pairs"),
           (pairhmm_cuda, "stage_reads"), (pairhmm_cuda, "stack_tracks"),
-          (pairhmm_cuda, "read_planes"), (pairhmm_cuda, "rescale_shared"))
+          (pairhmm_cuda, "read_planes"), (pairhmm_cuda, "rescale_shared"),
+          (pairhmm_cuda, "pairhmm_shared_f32"))
 
 
 def _ranged(name: str, fn):

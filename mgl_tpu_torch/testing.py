@@ -1,13 +1,16 @@
 """Fixtures and checks shared by the port's tests, ``chip_smoke.py`` and
 ``mgl_tpu_torch.profile_e2e``: seeded SW pairs and GATK-shaped PairHMM
-regions, golden rows, tensor packers, traceback comparisons of both
-layouts and a CUDA-event timer.  Nothing on the main path imports this module.
+regions, hap sets for the shared kernel's edges, golden rows, tensor
+packers, traceback comparisons of both layouts and CUDA-event timers.
+Nothing on the main path imports this module.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import pathlib
+import time
 
 import numpy as np
 import torch
@@ -94,9 +97,7 @@ def engine_region(seed: int, n_reads: int = 512, n_haps: int = 12,
     haps = [base.copy()]
     for p in sorted(int(x) for x in
                     rng.integers(haplen // 3, haplen - 10, n_haps - 1)):
-        h = haps[-1].copy()
-        h[p] = ACGT[(int(np.searchsorted(ACGT, h[p])) + 1) % 4]
-        haps.append(h)
+        haps.append(snp(haps[-1], p))
     reads = []
     for k in range(n_reads):
         st = int(rng.integers(0, haplen - rdlen))
@@ -110,6 +111,75 @@ def engine_region(seed: int, n_reads: int = 512, n_haps: int = 12,
         reads.append(dict(bases=b, q=q, i=q, d=q,
                           c=np.full(rdlen, 10, np.uint8)))
     return reads, haps
+
+
+def snp(h: np.ndarray, p: int) -> np.ndarray:
+    """``h`` with base p changed to the next of A, C, G, T."""
+    h = h.copy()
+    h[p] = ACGT[(int(np.searchsorted(ACGT, h[p])) + 1) % 4]
+    return h
+
+
+def _tiled_read(rng, base: np.ndarray, n: int, random: bool) -> dict:
+    """A read of n bases: a slice of ``base`` (tiled when n is longer) or
+    random bases, with mid qualities."""
+    if random:
+        b = rng.choice(ACGT, n)
+    else:
+        tiled = np.tile(base, n // len(base) + 2)
+        st = int(rng.integers(0, len(base)))
+        b = tiled[st:st + n].copy()
+    q = rng.integers(10, 50, n).astype(np.uint8)
+    return dict(bases=b, q=q, i=q, d=q, c=np.full(n, 10, np.uint8))
+
+
+def shared_edge_set(seed: int, read_lens, hap_len: int = 120
+                    ) -> tuple[list[dict], list[np.ndarray]]:
+    """Reads of ``read_lens`` bases against a hap set with every edge of
+    the shared kernel's segments: haps one SNP apart that share prefixes,
+    a reset (a hap sharing less than its predecessor did), an exact
+    duplicate right after its twin (a zero-length segment), a hap under 8
+    bases (the next one starts afresh) and a prefix of the first hap.
+    Every third read is random, the others slices of the first hap."""
+    rng = np.random.default_rng(seed)
+    base = rng.choice(ACGT, hap_len)
+    haps = [base] + [snp(base, int(f * hap_len))
+                     for f in (0.75, 0.6, 0.85, 0.5)]
+    haps.insert(3, haps[2].copy())
+    haps += [rng.choice(ACGT, 7), base[:hap_len - 10].copy(),
+             base[:hap_len // 3].copy()]
+    reads = [_tiled_read(rng, base, n, k % 3 == 2)
+             for k, n in enumerate(read_lens)]
+    return reads, haps
+
+
+def long_hap_set(seed: int, n_reads: int = 300, n_haps: int = 24,
+                 hap_len: int = 1000, read_len: int = 100
+                 ) -> tuple[list[dict], list[np.ndarray]]:
+    """A long hap set: haps one SNP apart at shuffled positions, so that
+    about half share less than their predecessor and start afresh - a
+    stream of ~16k slots at the defaults, a carry row of ~129 KB a read,
+    which the launcher keeps in global memory for 300 reads."""
+    rng = np.random.default_rng(seed)
+    haps = [rng.choice(ACGT, hap_len)]
+    for p in rng.integers(8, hap_len - 8, n_haps - 1):
+        haps.append(snp(haps[-1], int(p)))
+    reads = [_tiled_read(rng, haps[0], read_len, k % 16 == 0)
+             for k in range(n_reads)]
+    return reads, haps
+
+
+def shared_on_and_off(reads: list[dict], haps: list[np.ndarray], device
+                      ) -> tuple[tuple, tuple]:
+    """The shared kernel's arguments for reads x haps (normalized), and the
+    same with every hap starting afresh (sharing off)."""
+    from mgl_tpu_torch.kernels.pairhmm_cuda import segment_table, stage_shared
+
+    on = stage_shared(reads, haps, device)
+    hstream, segtab = segment_table(haps, np.zeros(len(haps), np.int64))
+    off = (*on[:3], torch.from_numpy(hstream).to(device),
+           torch.from_numpy(segtab).to(device), on[5])
+    return on, off
 
 
 def traceback_mismatches(words_a: torch.Tensor, words_b: torch.Tensor,
@@ -176,6 +246,39 @@ def timed_calls(fn, iters: int = 1):
     """(the last call's output, mean device ms of ``iters`` calls of fn()
     by CUDA events)."""
     torch.cuda.synchronize()
+    return _between_events(fn, iters)
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Mean device ms of ``iters`` calls of fn(), enqueued behind a spin of
+    the card (``torch.cuda._sleep``) that outlasts their host time, so the
+    events bracket the calls' device work and not the host's launch
+    overhead between them, which exceeds a small kernel's time."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda._sleep(int(2 * iters * host_ms * _spin_cycles_per_ms())
+                      + 1_000_000)
+    return _between_events(fn, iters)[1]
+
+
+@functools.cache
+def _spin_cycles_per_ms() -> float:
+    """Cycles ``torch.cuda._sleep`` counts in a millisecond on this card."""
+    cycles = 20_000_000
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    stop.record()
+    stop.synchronize()
+    return cycles / start.elapsed_time(stop)
+
+
+def _between_events(fn, iters: int):
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()

@@ -1,36 +1,54 @@
-"""mgl_tpu_torch's shared-hap-set path on the CPU, held to the JAX package.
+"""mgl_tpu_torch's shared-hap-set path, held to the JAX package on the CPU
+and to its plain version on the card.
 
-The plain version of the shared kernel (``shared_forward_plain``) against
-itself with sharing off, against the per-pair plain forward, and against
+On the CPU: the plain version of the shared kernel
+(``shared_forward_plain``) against itself with sharing off, against the
+per-pair plain forward (also on reads of 1 to 320 bases and a
+zero-length segment), and against
 ``mgl_tpu.kernels.pairhmm_pallas.forward_scores_shared`` under the Pallas
 interpreter (one call, module-scoped: it is the slow part); the hap
 similarity pass and the engine's shared-or-product decision against the
-JAX package's; the engine in shared mode against the JAX engine; and the
-pipelined stream against sequential calls.  Small shapes and one thread.
+JAX package's; the engine in shared mode against the JAX engine; the
+pipelined stream against sequential calls; the rule that picks the
+kernel's warps a read (``shared_warps``) and the refusal of a bad forced
+W.  Small shapes and one thread.
+
+On the card (``cuda``): ``pairhmm_shared_f32`` at every W from 1 to
+SHARED_WARPS_MAX bit-equal to the plain version, sharing on and off, on
+reads of 1 to ~1,100 bases (35 bands, more than a block's warps, so
+bands wrap), at the region shape with the carry row in shared memory,
+and on a long hap set with it in global memory.  The JAX package is imported only inside the
+CPU tests that use it, so the card tests also run on a GPU host without
+it: ``python -m pytest tests/test_torch_shared.py -m cuda``.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from test_torch_pairhmm import _product_fixture
-
-from mgl_tpu.api import PairHmmEngine as JaxEngine
-from mgl_tpu.ops import pairhmm as jax_pairhmm
 from mgl_tpu_torch.api import PairHmmEngine
 from mgl_tpu_torch.kernels import pairhmm_cuda as ph
 from mgl_tpu_torch.ops.pairhmm import (compute_haplotype_similarities,
-                                       normalize, use_shared_kernel)
+                                       normalize, shared_forward_plain,
+                                       use_shared_kernel)
 from mgl_tpu_torch.tables import CTX_F32, MIN_ACCEPTED
-from mgl_tpu_torch.testing import ACGT, engine_region
+from mgl_tpu_torch.testing import (ACGT, engine_region, long_hap_set,
+                                   shared_edge_set, shared_on_and_off, snp)
 
 torch.set_num_threads(1)
+H100_SMS = 132
+# reads of 1 to ~1,100 bases: one band, a band's edges (31, 32, 33), two
+# bands, the region's 151 bp, 300+ and 35 bands (more than
+# SHARED_WARPS_MAX, so a read wraps at every W)
+EDGE_READS = (1, 31, 32, 33, 64, 65, 151, 300, 1100)
 
 
-def _snp(h: np.ndarray, p: int) -> np.ndarray:
-    h = h.copy()
-    h[p] = ACGT[(int(np.searchsorted(ACGT, h[p])) + 1) % 4]
-    return h
+@pytest.fixture
+def cuda():
+    """The card, or a skip: decided here, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
 
 
 def _shared_fixture():
@@ -39,7 +57,7 @@ def _shared_fixture():
     predecessor did) and, last, an exact duplicate of hap 2."""
     rng = np.random.default_rng(11)
     base = rng.choice(ACGT, 120)
-    haps = [base] + [_snp(base, p) for p in (90, 70, 100, 60)]
+    haps = [base] + [snp(base, p) for p in (90, 70, 100, 60)]
     haps.append(haps[2].copy())
     reads = []
     for k in range(9):
@@ -66,6 +84,8 @@ def test_haplotype_similarities_equal_jax():
     """Positions and (cols_min, cols_max) equal the JAX package's on 40
     seeded hap sets with shared prefixes, resets, haps under 8 bases and
     empty or single-hap sets."""
+    from mgl_tpu.ops import pairhmm as jax_pairhmm
+
     rng = np.random.default_rng(23)
     resets = short = 0
     for case in range(40):
@@ -74,7 +94,7 @@ def test_haplotype_similarities_equal_jax():
         for _ in range(case % 9):
             h = base[:int(rng.integers(3, len(base) + 1))]
             if len(h) > 2 and rng.random() < 0.8:
-                h = _snp(h, int(rng.integers(0, len(h))))
+                h = snp(h, int(rng.integers(0, len(h))))
             haps.append(h)
         got = compute_haplotype_similarities(haps)
         want = jax_pairhmm.compute_haplotype_similarities(haps)
@@ -134,6 +154,8 @@ def test_engine_decision_equals_jax(shape, shared, monkeypatch):
     (_shared_product_scores returns None for product mode); the JAX
     kernel is stubbed, so no interpreter runs."""
     import mgl_tpu.kernels.pairhmm_pallas as pallas
+    from mgl_tpu.ops import pairhmm as jax_pairhmm
+    from test_torch_pairhmm import _product_fixture
 
     monkeypatch.setattr(
         pallas, "forward_scores_shared",
@@ -166,6 +188,9 @@ def test_engine_shared_mode_vs_jax_engine():
     mgl_tpu.api.PairHmmEngine(impl='xla') within 1e-5 log10 (the contract
     tests/test_pairhmm_shared.py:105 holds the JAX shared path to), with
     the same rescue decisions."""
+    from mgl_tpu.api import PairHmmEngine as JaxEngine
+    from mgl_tpu.ops import pairhmm as jax_pairhmm
+
     reads, haps = _short_region(3)
     assert use_shared_kernel([len(r["bases"]) for r in reads], haps)
     got = PairHmmEngine(device="cpu").compute_likelihoods(reads, haps)
@@ -197,3 +222,112 @@ def test_stream_equals_sequential(depth):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("n_reads, n_bands, sm_count, want", [
+    (512, 5, H100_SMS, 5),             # GATK's region: 151 bp reads
+    (32, 5, H100_SMS, 5),
+    (10_000, 5, H100_SMS, 1),          # the reads alone fill the card
+    (H100_SMS * ph.WARPS_PER_SM, 8, H100_SMS, 1),
+    (1000, 5, H100_SMS, 3),            # W = 2 wanted: two rounds, of 3
+    (300, 8, H100_SMS, 8),             # 250 bp reads, W = 6 -> 8
+    (600, 8, H100_SMS, 4),             # W = 3 -> two rounds of 4
+    (128, 2, H100_SMS, 2),
+    (1, 1, H100_SMS, 1),
+    (4, 35, H100_SMS, 18),             # over 24 bands: two rounds
+    (1, 100, 4, 13),                   # W = 12 wanted: 8 rounds of 13
+])
+def test_warps_per_read_rule(n_reads, n_bands, sm_count, want):
+    """W is at most the bands and SHARED_WARPS_MAX, at least the W that
+    puts WARPS_PER_SM warps on each SM holding a read (where the
+    bands and the cap allow), and shares the bands evenly: no round of a
+    warp's bands is shorter than needed."""
+    w = ph.shared_warps(n_reads, n_bands, sm_count)
+    assert w == want
+    assert 1 <= w <= min(n_bands, ph.SHARED_WARPS_MAX)
+    rounds = -(-n_bands // w)
+    assert -(-n_bands // rounds) == w          # fewest warps for its rounds
+    target = min(n_reads, sm_count) * ph.WARPS_PER_SM
+    if n_bands <= ph.SHARED_WARPS_MAX:
+        assert n_reads * w >= target or w == n_bands
+
+
+@pytest.mark.parametrize("warps", [0, ph.SHARED_WARPS_MAX + 1, 2.0])
+def test_forced_w_out_of_range_is_refused(warps):
+    """Forcing a W the kernel does not take raises before anything runs,
+    on CPU tensors too."""
+    reads, haps = normalize(*shared_edge_set(1, (10, 40)))
+    args = ph.stage_shared(reads, haps, "cpu")
+    with pytest.raises(ValueError, match="warps_per_read"):
+        ph.pairhmm_shared_f32(*args, warps_per_read=warps)
+
+
+@pytest.mark.parametrize("read_lens", [(1, 32, 33, 320), (31, 64, 65, 95)],
+                         ids=["1_32_33_320", "31_64_65_95"])
+def test_shared_plain_on_edge_reads(read_lens):
+    """The plain version the kernel is held to, on reads of one base, of
+    one band's edges and of 10 bands, against haps with a reset, a
+    zero-length segment, a hap under 8 bases and a prefix hap: sharing on
+    == sharing off == the per-pair forward with yInit = y_shared, bit for
+    bit, and the duplicate hap's column equal to its twin's."""
+    reads, haps = normalize(*shared_edge_set(2, read_lens))
+    on, off = shared_on_and_off(reads, haps, "cpu")
+    segtab = on[4].numpy()
+    assert (segtab[2] == segtab[1]).any()        # a zero-length segment
+    assert ((segtab[1] == 0) & (np.arange(len(haps)) > 0)).sum() >= 2
+    got_on, got_off = shared_forward_plain(*on), shared_forward_plain(*off)
+    pairs = [(r, h) for r in range(len(reads)) for h in range(len(haps))]
+    pa = ph.stage_pairs(reads, haps, pairs, CTX_F32, "cpu")
+    y = torch.full((len(haps),), on[5], dtype=torch.float32)
+    full = ph.forward_plain(*pa[:5], y, *pa[6:]).reshape(got_on.shape)
+    assert torch.equal(got_on, got_off)
+    assert torch.equal(got_on, full)
+    assert torch.equal(got_on[:, 3], got_on[:, 2])
+    assert int((got_on > 0).sum()) >= got_on.numel() // 2   # not vacuous
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sharing", [True, False], ids=["on", "off"])
+def test_every_w_matches_plain(cuda, sharing):
+    """Every W from 1 to SHARED_WARPS_MAX (and the wrapper's) gives the
+    plain version's bits on reads of 1 to 1,100 bases, with sharing on
+    and off."""
+    reads, haps = normalize(*shared_edge_set(3, EDGE_READS))
+    args = shared_on_and_off(reads, haps, cuda)[0 if sharing else 1]
+    want = shared_forward_plain(*args)
+    for w in (None, *range(1, ph.SHARED_WARPS_MAX + 1)):
+        got = ph.pairhmm_shared_f32(*args, warps_per_read=w)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), w
+
+
+@pytest.mark.cuda
+def test_region_shape_every_w_shared_carry(cuda):
+    """At GATK's region shape (512 reads x 12 haps, 151 x 420) the carry
+    row lies in shared memory, and W = 1 to 5 all equal the plain version
+    bit for bit."""
+    reads, haps = normalize(*engine_region(100))
+    args = ph.stage_shared(reads, haps, cuda)
+    want = shared_forward_plain(*args)
+    for w in range(1, 6):
+        assert ph.shared_carry_in_shared(512, args[3].shape[0], w, cuda)
+        got = ph.pairhmm_shared_f32(*args, warps_per_read=w)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), w
+
+
+@pytest.mark.cuda
+def test_long_hap_set_global_carry(cuda):
+    """24 haps of 1 kb with resets (a row of ~129 KB a read) for 300
+    reads: the launcher keeps the row in global memory, and the kernel
+    equals the plain version at W = 1, 2, 4 and the wrapper's W."""
+    reads, haps = normalize(*long_hap_set(5))
+    args = ph.stage_shared(reads, haps, cuda)
+    want = shared_forward_plain(*args)
+    for w in (None, 1, 2, 4):
+        if w is not None:
+            assert not ph.shared_carry_in_shared(300, args[3].shape[0], w,
+                                                 cuda)
+        got = ph.pairhmm_shared_f32(*args, warps_per_read=w)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), w
