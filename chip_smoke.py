@@ -19,14 +19,19 @@ banded kernels.  Phases:
 
 0. environment (card, power limit, CUDA, nvcc, the port's host library);
 1. build of the kernels;
-2. each kernel vs its plain version on the card, bit for bit;
+2. each kernel vs its plain version on the card, bit for bit (the three
+   pipelined kernels - banded SW, per-pair and shared PairHMM - at every
+   warps-a-block count W, with the carry row in shared and in global
+   memory);
 3. all SW golden cases, CIGAR and offset exact;
 4. PairHMM known answers and golden rows through the cascade;
 5. the main path at a realistic size, with launch counts and times;
 6. the stream over the same regions, bit-equal to sequential calls;
 7. the plane path: SW goldens, the 150 bp batch and PairHMM regions,
    bit-equal to the banded kernels, with launch counts;
-8. kernel and plain times at the main path's shapes, with bounds.
+8. kernel and plain times at the main path's shapes, with bounds, and
+   the pipelined kernels' W sweeps (registers and spills, warps an SM,
+   carry placement).
 
 Any failed phase raises and the script exits non-zero.  The last line is
 one JSON object naming the device; the line before it lists the kernels
@@ -120,17 +125,21 @@ def compare_sw_plane(args, indel_init: bool, mode: str) -> int:
                zip(got, want))
 
 
-def compare_pairhmm(args, kernel) -> float:
-    """A per-pair PairHMM kernel vs the plain forward on the card: the
+def compare_pairhmm(args, kernel, warps=(None,)) -> float:
+    """A per-pair PairHMM kernel vs the plain forward on the card, the
+    banded ones at each W of ``warps`` (None: the wrapper's choice): the
     largest |difference| (0.0 when bit-equal)."""
     import torch
 
     from mgl_tpu_torch.kernels import pairhmm_cuda as ph
 
-    got = kernel(*args)
     want = ph.forward_plain(*args)
-    torch.cuda.synchronize()
-    return float((got.double() - want.double()).abs().max())
+    err = 0.0
+    for w in warps:
+        got = kernel(*args) if w is None else kernel(*args, warps_per_pair=w)
+        torch.cuda.synchronize()
+        err = max(err, float((got.double() - want.double()).abs().max()))
+    return err
 
 
 def traceback_bytes(targets, queries) -> tuple[int, int]:
@@ -179,7 +188,8 @@ def main() -> int:
     from mgl_tpu_torch.testing import (ACGT, cuda_ms, engine_region,
                                        golden_groups, golden_read,
                                        load_golden, long_hap_set,
-                                       queued_ms, shared_on_and_off, snp,
+                                       pair_edge_set, queued_ms,
+                                       shared_on_and_off, snp,
                                        sw_pairs,
                                        sw_tensors, timed_calls,
                                        traceback_mismatches, u8)
@@ -279,25 +289,43 @@ def main() -> int:
     rnd_pairs = [(r, h) for r in range(64) for h in range(16)]
     # the random pairs go in as one ragged set: reads of 50-160 bases
     # against haps of 100-400 in one launch
-    for reads, haps, pairs in (
-            (kat_reads, kat_haps, [(k, k) for k in range(len(kat))]),
-            (rnd_reads, rnd_haps, rnd_pairs)):
-        staged = ph.stage_pairs(*normalize(reads, haps), pairs, CTX_F32, dev)
-        for name in ("pairhmm_banded_f32", "pairhmm_plane_f32"):
-            e = compare_pairhmm(staged, kernels[name])
-            if e:
-                raise AssertionError(f"{name} kernel != plain: {e}")
-            err[name] = max(err[name], e)
     golden = load_golden("pairhmm_golden.jsonl")
     g_reads = [golden_read(r) for r in golden]
     g_haps = [u8(r["hap"]) for r in golden]
     gn_reads, gn_haps = normalize(g_reads, g_haps)
     diag = [(k, k) for k in range(len(golden))]
-    e = compare_pairhmm(ph.stage_pairs(gn_reads, gn_haps, diag, CTX_F64, dev),
-                        ph.pairhmm_banded_f64)
-    if e:
-        raise AssertionError(f"PairHMM f64 kernel != plain: {e}")
-    err["pairhmm_banded_f64"] = e
+    # the per-pair kernels at every W the kernel takes, in f32 and f64: the
+    # KAT pairs, the random ragged set and the golden rows (carry row in
+    # shared memory), then reads of 1-700 bases against one hap of 16 kb
+    # (f64) or 30 kb (f32), whose row cannot lie in shared memory
+    pp_warps = (None, *range(1, ph.BANDED_WARPS_MAX + 1))
+    pp_sets = [(kat_reads, kat_haps, [(k, k) for k in range(len(kat))]),
+               (rnd_reads, rnd_haps, rnd_pairs),
+               (g_reads, g_haps, diag)]
+    pp_placed = []
+    for ctx, name, long_len in ((CTX_F32, "pairhmm_banded_f32", 30_000),
+                                (CTX_F64, "pairhmm_banded_f64", 16_000)):
+        for k, (reads, haps, pairs) in enumerate(
+                pp_sets + [pair_edge_set(6, (1, 33, 151, 700), (long_len,))]):
+            staged = ph.stage_pairs(*normalize(reads, haps), pairs, ctx, dev)
+            e = compare_pairhmm(staged, kernels[name], pp_warps)
+            if e:
+                raise AssertionError(f"{name} kernel != plain (set {k}): {e}")
+            err[name] = max(err[name], e)
+            pp_placed.append((name, len(pairs), staged[3].shape[1], {
+                "shared" if ph.banded_carry_in_shared(
+                    len(pairs), staged[3].shape[1], w, staged[0].dtype, dev)
+                else "global" for w in pp_warps[1:]}))
+            if ctx is CTX_F32 and k < 2:
+                e = compare_pairhmm(staged, ph.pairhmm_plane_f32)
+                if e:
+                    raise AssertionError(f"pairhmm_plane_f32 kernel != plain: "
+                                         f"{e}")
+                err["pairhmm_plane_f32"] = max(err["pairhmm_plane_f32"], e)
+        places = set().union(*(p for n, *_, p in pp_placed if n == name))
+        if places != {"shared", "global"}:
+            raise AssertionError(f"{name}: the carry row did not take both "
+                                 f"placements: {pp_placed}")
     # shared-hap-set: 200 ragged reads against 10 haps with shared
     # prefixes, a duplicate right after its twin (a zero-length segment),
     # resets and a hap under 8 bases, with sharing on and off
@@ -351,9 +379,13 @@ def main() -> int:
         f"pair, and 2,048 pairs of 1-64 x 1,000-2,000 bp (carry row in "
         f"global memory) at W = 1, 2, ez and real-cell nibbles equal; plane "
         f"x 3 modes (traceback, "
-        f"samples, best score), every output equal; PairHMM f32 banded and plane on {len(kat)} KAT "
-        f"+ {len(rnd_pairs)} random ragged pairs: equal; PairHMM f64 on {len(golden)} golden rows: "
-        f"equal; shared on {len(sh_reads)} reads of 50-160 bp x "
+        f"samples, best score), every output equal; PairHMM plane f32 on "
+        f"{len(kat)} KAT + {len(rnd_pairs)} random ragged pairs: equal; "
+        f"PairHMM banded f32 and f64 on those, the {len(golden)} golden rows "
+        f"and reads of 1-700 bp against a hap of 30 kb (f32) or 16 kb (f64) "
+        f"at the wrapper's W and W = 1..{ph.BANDED_WARPS_MAX}: equal; carry "
+        f"rows (kernel, pairs, hap columns, placement) {pp_placed}; "
+        f"shared on {len(sh_reads)} reads of 50-160 bp x "
         f"{len(sh_haps)} haps (positions "
         f"{compute_haplotype_similarities(sh_haps)[0].tolist()}) at the "
         f"wrapper's W and W = 1.."
@@ -684,31 +716,77 @@ def main() -> int:
                 f"{'plain and ' if label == '150x150' else ''}the banded ez; "
                 f"card {card}")
 
+    # the per-pair kernels: f32 at the product-mode region's 384 pairs and
+    # at a 512 x 12 region's 6,144, f64 at its 384 rescue pairs (every 16th
+    # read); each at the wrapper's W against the plain version, then the
+    # sweep over every W up to the read's bands, each bit-equal to it; all
+    # timed as time_pairhmm_banded times them (testing.queued_ms)
     small_r, small_h = normalize(*small)
     a32 = ph.stage_pairs(small_r, small_h,
                          [(r, h) for r in range(32) for h in range(12)],
                          CTX_F32, dev)
     tail = [(r, h) for r in range(0, 512, 16) for h in range(12)]
     a64 = ph.stage_pairs(reads0, haps0, tail, CTX_F64, dev)
-    for name, a, kern in (("pairhmm_banded_f32", a32, ph.pairhmm_banded_f32),
-                          ("pairhmm_banded_f64", a64, ph.pairhmm_banded_f64),
-                          ("pairhmm_plane_f32", a32_big,
-                           ph.pairhmm_plane_f32)):
+    regs = _build.kernel_resources("pairhmm_banded")
+    if any(r.get("spill_stores", 0) or r.get("spill_loads", 0) for r in regs):
+        raise AssertionError(f"the per-pair kernels spill: {regs}")
+    log(f"    pairhmm_banded registers and spills (f32 then f64, carry row in "
+        f"global then shared memory): "
+        f"{[(r['registers'], r.get('spill_stores'), r.get('spill_loads')) for r in regs]}"
+        f"; at most {ph.BANDED_WARPS_MAX} warps a block")
+    for name, a, kern, sweep in (
+            ("pairhmm_banded_f32", a32, ph.pairhmm_banded_f32, False),
+            ("pairhmm_banded_f32", a32_big, ph.pairhmm_banded_f32, True),
+            ("pairhmm_banded_f64", a64, ph.pairhmm_banded_f64, True)):
+        n_pairs, n_bands = len(a[6]), (a[0].shape[-1] - 2) // 32
         cells = int((a[2][a[6]].long() * a[4][a[7]].long()).sum())
-        k_ms = cuda_ms(lambda: kern(*a), 5)
+        b_ms, b_by = bound(cells * FLOPS_PER_CELL,
+                           "f64" if name.endswith("f64") else "f32",
+                           nbytes(*a) + n_pairs * a[0].element_size())
+        chosen = ph.pair_warps(n_pairs, n_bands, sms)
         p_ms = cuda_ms(lambda: ph.forward_plain(*a), 1)
-        e = compare_pairhmm(a, kern)
-        if e:
-            raise AssertionError(f"{name} != plain at the region shape: {e}")
-        err[name] = max(err[name], e)
-        ms[name], plain_ms[name] = k_ms, p_ms
-        bounds[name] = bound(cells * FLOPS_PER_CELL,
-                             "f64" if name.endswith("f64") else "f32",
-                             nbytes(*a) + a[6].numel() * a[0].element_size())
-        log(f"    {name} {len(a[6])} pairs 151x420: kernel {k_ms:.3f} ms = "
-            f"{cells / k_ms / 1e6:.2f} GCUPS; plain torch {p_ms:.3f} ms = "
-            f"{cells / p_ms / 1e6:.2f} GCUPS; bound {bounds[name][0]:.4f} ms "
-            f"({bounds[name][1]}); equal; card {card}")
+        want = ph.forward_plain(*a)
+        log(f"    {name} {n_pairs} pairs 151x420 ({n_bands} bands): plain "
+            f"torch {p_ms:.3f} ms = {cells / p_ms / 1e6:.2f} GCUPS; bound "
+            f"{b_ms:.4f} ms ({b_by}); card {card}")
+        for w in [chosen] + ([w for w in range(1, n_bands + 1) if w != chosen]
+                             if sweep else []):
+            k_ms = queued_ms(lambda: kern(*a, warps_per_pair=w), 5)
+            got = kern(*a, warps_per_pair=w)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                e = float((got.double() - want.double()).abs().max())
+                raise AssertionError(f"{name} W={w} != plain at {n_pairs} "
+                                     f"pairs: {e}")
+            if w == chosen and n_pairs == 384:
+                ms[name], plain_ms[name] = k_ms, p_ms
+                bounds[name] = (b_ms, b_by)
+            carry = ("shared" if ph.banded_carry_in_shared(
+                n_pairs, a[3].shape[1], w, a[0].dtype, dev) else "global")
+            log(f"      W={w}{' (chosen)' if w == chosen else ''}: kernel "
+                f"{k_ms:.4f} ms = {cells / k_ms / 1e6:.2f} GCUPS; bound share "
+                f"{b_ms / k_ms:.3f}; {n_pairs} blocks of {w} warps, "
+                f"{n_pairs * w / sms:.1f} warps an SM over the launch; carry "
+                f"row in {carry} "
+                f"memory; equal to plain; card {card}")
+
+    # the plane kernel over the region's product
+    a = a32_big
+    cells = int((a[2][a[6]].long() * a[4][a[7]].long()).sum())
+    k_ms = cuda_ms(lambda: ph.pairhmm_plane_f32(*a), 5)
+    p_ms = cuda_ms(lambda: ph.forward_plain(*a), 1)
+    e = compare_pairhmm(a, ph.pairhmm_plane_f32)
+    if e:
+        raise AssertionError(f"pairhmm_plane_f32 != plain at the region "
+                             f"shape: {e}")
+    ms["pairhmm_plane_f32"], plain_ms["pairhmm_plane_f32"] = k_ms, p_ms
+    bounds["pairhmm_plane_f32"] = bound(cells * FLOPS_PER_CELL, "f32",
+                                        nbytes(*a) + len(a[6]) * 4)
+    log(f"    pairhmm_plane_f32 {len(a[6])} pairs 151x420: kernel {k_ms:.3f} "
+        f"ms = {cells / k_ms / 1e6:.2f} GCUPS; plain torch {p_ms:.3f} ms = "
+        f"{cells / p_ms / 1e6:.2f} GCUPS; bound "
+        f"{bounds['pairhmm_plane_f32'][0]:.4f} ms "
+        f"({bounds['pairhmm_plane_f32'][1]}); equal; card {card}")
 
     # the shared kernel at the region shape: the wrapper's W against the
     # plain version, then the sweep over every W up to the read's bands,

@@ -33,12 +33,18 @@ BUILD_DIR = _PKG.parent / "build" / "mgl_tpu_torch"
 # at 24 (768 threads) ptxas keeps a lane's state in registers without
 # spills, where 32 warps held it to 64 registers and spilled.
 SHARED_MAX_WARPS = 24
+# The per-pair PairHMM kernel's most warps a block, its __launch_bounds__:
+# 16 (512 threads) leaves a lane 128 registers, room for the double
+# instance's planes and state without spills, and runs a read of up to
+# 512 bases (16 bands) in one round.
+BANDED_MAX_WARPS = 16
 # --fmad=false: no contraction of a*b+c, so the PairHMM kernels round like
 # torch's elementwise ops; no -ftz, so f32 denormals are kept.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
     f"-DMGL_SHARED_MAX_WARPS={SHARED_MAX_WARPS}",
+    f"-DMGL_BANDED_MAX_WARPS={BANDED_MAX_WARPS}",
 )
 # no -march=native: the library must load on any x86-64 host it is built on
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
@@ -50,8 +56,9 @@ _I = ctypes.c_int
 _ENTRIES = {
     "mgl_sw_banded": [_P] * 4 + [_I] * 13 + [_P] * 4,
     "mgl_sw_banded_carry_in_shared": [_I] * 4,
-    "mgl_pairhmm_banded_f32": [_P] * 8 + [_I] * 4 + [_P] * 3,
-    "mgl_pairhmm_banded_f64": [_P] * 8 + [_I] * 4 + [_P] * 3,
+    "mgl_pairhmm_banded_f32": [_P] * 8 + [_I] * 5 + [_P] * 3,
+    "mgl_pairhmm_banded_f64": [_P] * 8 + [_I] * 5 + [_P] * 3,
+    "mgl_pairhmm_banded_carry_in_shared": [_I] * 4,
     "mgl_pairhmm_shared_f32": [_P] * 5 + [_I] * 4
                               + [ctypes.c_float, _I, _I] + [_P] * 3,
     "mgl_pairhmm_shared_carry_in_shared": [_I] * 3,

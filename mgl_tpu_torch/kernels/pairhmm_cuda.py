@@ -41,9 +41,11 @@ _TRACKS = ("q", "i", "d", "c", "bases")
 # 9 floats a matrix row (M, X, Y of three diagonals) within the 227 KB of
 # shared memory a block may take
 PLANE_ROWS_MAX = 232_448 // (9 * 4)
-# the shared kernel's warps a read: 1 to SHARED_WARPS_MAX, aiming at
-# WARPS_PER_SM warps on each SM that holds a read
+# the pipelined kernels' warps a block (a read for the shared kernel, a
+# pair for the banded ones): 1 to the cap, aiming at WARPS_PER_SM warps on
+# each SM that holds a block
 SHARED_WARPS_MAX = _build.SHARED_MAX_WARPS
+BANDED_WARPS_MAX = _build.BANDED_MAX_WARPS
 
 
 def _check(name, x, dtype, shape, device):
@@ -55,10 +57,13 @@ def _check(name, x, dtype, shape, device):
 
 
 def _forward(entry: str, dtype: torch.dtype, planes, rchar, rslen, haps,
-             haplen, y_init, ridx, hidx, carry: bool = True) -> torch.Tensor:
-    """Check the per-pair kernels' arguments and launch ``entry``, with a
-    (U, W) carry between bands if ``carry`` (the banded kernels); on CPU
-    tensors run the plain forward."""
+             haplen, y_init, ridx, hidx, pipelined: bool = True,
+             warps_per_pair: int | None = None) -> torch.Tensor:
+    """Check the per-pair kernels' arguments and launch ``entry``; on CPU
+    tensors run the plain forward.  ``pipelined`` (the banded kernels): one
+    block a pair of ``warps_per_pair`` warps (by default
+    :func:`pair_warps`), the bands handing one (U, W) carry row down, in
+    shared or global memory as :func:`banded_carry_in_shared` says."""
     n_r, n_p, rows = planes.shape
     n_h, hap_cols = haps.shape
     B = ridx.shape[0]
@@ -85,10 +90,24 @@ def _forward(entry: str, dtype: torch.dtype, planes, rchar, rslen, haps,
                                      y_init, ridx, hidx)]
     out = torch.empty((B,), dtype=dtype, device=dev)
     extra = []
-    if carry:
-        carry_cols = hap_cols + BAND + 2
-        buf = torch.empty((B, 2, carry_cols), dtype=dtype, device=dev)
-        extra = [carry_cols, buf.data_ptr()]
+    if pipelined:
+        n_bands = (rows - 2) // BAND
+        if n_bands * (hap_cols + 1) >= 2 ** 31:
+            raise ValueError(f"the banded kernel counts a pair's progress in "
+                             f"int32: {n_bands} bands x {hap_cols} columns "
+                             f"is too large")
+        if warps_per_pair is None:
+            warps_per_pair = pair_warps(
+                B, n_bands,
+                torch.cuda.get_device_properties(dev).multi_processor_count)
+        in_shared = banded_carry_in_shared(B, hap_cols, warps_per_pair,
+                                           dtype, dev)
+        # else the (U, W) row that crosses bands lies in global memory, one
+        # (U, W) pair a hap column, never read unwritten
+        carry = (None if in_shared else
+                 torch.empty((B, hap_cols, 2), dtype=dtype, device=dev))
+        extra = [warps_per_pair, int(in_shared),
+                 None if carry is None else carry.data_ptr()]
     lib = _build.load_library()
     with torch.cuda.device(dev):
         code = getattr(lib, entry)(
@@ -98,28 +117,47 @@ def _forward(entry: str, dtype: torch.dtype, planes, rchar, rslen, haps,
     return out
 
 
+def _checked_warps(name: str, warps, cap: int):
+    """``warps`` if it is None or an int from 1 to ``cap``, else raise."""
+    if warps is not None and not (isinstance(warps, int)
+                                  and 1 <= warps <= cap):
+        raise ValueError(f"{name}: 1 to {cap}, got {warps!r}")
+    return warps
+
+
 def pairhmm_banded_f32(planes, rchar, rslen, haps, haplen, y_init, ridx,
-                       hidx) -> torch.Tensor:
+                       hidx, warps_per_pair: int | None = None
+                       ) -> torch.Tensor:
     """(B,) float32 forward scores, 2^120-scaled, of pairs
     (ridx[b], hidx[b]).  ``planes`` (n_reads, 7, 32k+2) float32 by matrix
     row (see :func:`read_planes`), ``rchar`` (n_reads, 32k+2) int32
     one-hot, ``rslen`` (n_reads,) int32 <= 32k, ``haps`` (n_haps, H) int32
     one-hot, ``haplen`` (n_haps,) int32 <= H, ``y_init`` (n_haps,) float32,
     ``ridx``/``hidx`` (B,) int64, each below n_reads / n_haps (not
-    checked on the card: that would synchronise)."""
+    checked on the card: that would synchronise).
+
+    One block a pair: its bands run side by side on ``warps_per_pair``
+    warps, pipelined through one carry row, which lies in shared memory
+    where that costs the launch no resident blocks, else in global memory
+    (the launcher's query :func:`banded_carry_in_shared`).  By default
+    :func:`pair_warps` picks W; forcing one (1 to BANDED_WARPS_MAX) gives
+    the same bits."""
+    w = _checked_warps("warps_per_pair", warps_per_pair, BANDED_WARPS_MAX)
     out = _forward("mgl_pairhmm_banded_f32", torch.float32, planes, rchar,
-                   rslen, haps, haplen, y_init, ridx, hidx)
+                   rslen, haps, haplen, y_init, ridx, hidx, warps_per_pair=w)
     if planes.device.type == "cuda":
         pairhmm_banded_f32.launches += 1
     return out
 
 
 def pairhmm_banded_f64(planes, rchar, rslen, haps, haplen, y_init, ridx,
-                       hidx) -> torch.Tensor:
+                       hidx, warps_per_pair: int | None = None
+                       ) -> torch.Tensor:
     """As :func:`pairhmm_banded_f32` in float64 with CTX_F64 planes and
     2^1020 scaling: the rescue tier."""
+    w = _checked_warps("warps_per_pair", warps_per_pair, BANDED_WARPS_MAX)
     out = _forward("mgl_pairhmm_banded_f64", torch.float64, planes, rchar,
-                   rslen, haps, haplen, y_init, ridx, hidx)
+                   rslen, haps, haplen, y_init, ridx, hidx, warps_per_pair=w)
     if planes.device.type == "cuda":
         pairhmm_banded_f64.launches += 1
     return out
@@ -140,24 +178,51 @@ def pairhmm_plane_f32(planes, rchar, rslen, haps, haplen, y_init, ridx,
         raise ValueError(f"the plane PairHMM kernel takes up to "
                          f"{PLANE_ROWS_MAX} plane rows, got {rows}")
     out = _forward("mgl_pairhmm_plane_f32", torch.float32, planes, rchar,
-                   rslen, haps, haplen, y_init, ridx, hidx, carry=False)
+                   rslen, haps, haplen, y_init, ridx, hidx, pipelined=False)
     if planes.device.type == "cuda":
         pairhmm_plane_f32.launches += 1
     return out
 
 
-def shared_warps(n_reads: int, n_bands: int, sm_count: int) -> int:
-    """Warps a read for the shared kernel (one block a read, warp w runs
-    bands w, w+W, ...).  The least W that puts WARPS_PER_SM warps
-    on each SM holding a read, at most the bands, then the bands shared
-    out evenly over as few rounds as that W allows (a warp runs
+def _pipeline_warps(n_blocks: int, n_bands: int, sm_count: int,
+                    cap: int) -> int:
+    """Warps a block for a kernel that runs a block's bands on its warps
+    (warp w runs bands w, w+W, ...).  The least W that puts WARPS_PER_SM
+    warps on each SM holding a block, at most the bands, then the bands
+    shared out evenly over as few rounds as that W allows (a warp runs
     ceil(n_bands / W) bands one after another, so 5 bands take W = 5, not
-    4), and at most SHARED_WARPS_MAX."""
+    4), and at most ``cap``."""
     n_bands = max(n_bands, 1)
-    target = min(n_reads, sm_count) * WARPS_PER_SM
-    w = min(n_bands, SHARED_WARPS_MAX, -(-target // max(n_reads, 1)))
-    rounds = max(n_bands // w, -(-n_bands // SHARED_WARPS_MAX))
+    target = min(n_blocks, sm_count) * WARPS_PER_SM
+    w = min(n_bands, cap, -(-target // max(n_blocks, 1)))
+    rounds = max(n_bands // w, -(-n_bands // cap))
     return -(-n_bands // rounds)
+
+
+def shared_warps(n_reads: int, n_bands: int, sm_count: int) -> int:
+    """Warps a read for the shared kernel (one block a read), by
+    :func:`_pipeline_warps`, at most SHARED_WARPS_MAX."""
+    return _pipeline_warps(n_reads, n_bands, sm_count, SHARED_WARPS_MAX)
+
+
+def pair_warps(n_pairs: int, n_bands: int, sm_count: int) -> int:
+    """Warps a pair for the per-pair banded kernels (one block a pair), by
+    :func:`_pipeline_warps`, at most BANDED_WARPS_MAX: 5 at the rescue
+    tier's 384 pairs of 151 bp reads, 1 at 6,144."""
+    return _pipeline_warps(n_pairs, n_bands, sm_count, BANDED_WARPS_MAX)
+
+
+def banded_carry_in_shared(n_pairs: int, hap_cols: int, warps_per_pair: int,
+                           dtype: torch.dtype, device) -> bool:
+    """Whether :func:`pairhmm_banded_f32` (``dtype`` float32) or
+    :func:`pairhmm_banded_f64` (float64) keeps the carry row of n_pairs
+    pairs against haps of ``hap_cols`` columns in shared memory on
+    ``device`` (a CUDA device): the launcher's choice, from the block's
+    opt-in limit and the blocks an SM holds either way, asked once a
+    shape and device."""
+    return _row_in_shared(device, "mgl_pairhmm_banded_carry_in_shared",
+                          n_pairs, hap_cols, warps_per_pair,
+                          int(dtype == torch.float64))
 
 
 def shared_carry_in_shared(n_reads: int, stream_cols: int,
@@ -167,20 +232,25 @@ def shared_carry_in_shared(n_reads: int, stream_cols: int,
     in shared memory on ``device`` (a CUDA device): the launcher's choice,
     from the block's opt-in limit and the blocks an SM holds either way,
     asked once a shape and device."""
+    return _row_in_shared(device, "mgl_pairhmm_shared_carry_in_shared",
+                          n_reads, stream_cols, warps_per_read)
+
+
+def _row_in_shared(device, query: str, *shape: int) -> bool:
     dev = torch.device(device)
     index = torch.cuda.current_device() if dev.index is None else dev.index
-    return _carry_in_shared(index, n_reads, stream_cols, warps_per_read)
+    return _ask_launcher(index, query, *shape)
 
 
 @functools.lru_cache(maxsize=1024)
-def _carry_in_shared(index: int, n_reads: int, stream_cols: int,
-                     warps_per_read: int) -> bool:
+def _ask_launcher(index: int, query: str, *shape: int) -> bool:
+    """The answer of a launcher's C placement query (1 shared, 0 global,
+    minus a CUDA error code) on device ``index``, cached a shape."""
     lib = _build.load_library()
     with torch.cuda.device(index):
-        got = lib.mgl_pairhmm_shared_carry_in_shared(n_reads, stream_cols,
-                                                     warps_per_read)
+        got = getattr(lib, query)(*shape)
     if got < 0:
-        _build.check_launch(lib, -got, "pairhmm_shared_f32")
+        _build.check_launch(lib, -got, query)
     return bool(got)
 
 
@@ -201,11 +271,7 @@ def pairhmm_shared_f32(planes, rchar, rslen, hstream, segtab,
     (the launcher's query :func:`shared_carry_in_shared`).  By default
     :func:`shared_warps` picks W; forcing one (1 to SHARED_WARPS_MAX)
     gives the same bits."""
-    if warps_per_read is not None and not (
-            isinstance(warps_per_read, int)
-            and 1 <= warps_per_read <= SHARED_WARPS_MAX):
-        raise ValueError(f"warps_per_read: 1 to {SHARED_WARPS_MAX}, got "
-                         f"{warps_per_read!r}")
+    _checked_warps("warps_per_read", warps_per_read, SHARED_WARPS_MAX)
     n_r, _, rows = planes.shape
     n_h = segtab.shape[1]
     cols = hstream.shape[0]

@@ -49,7 +49,8 @@ STAGES = ((api, "bucket_pairs"), (api, "_checked_reads"),
           (pairhmm_cuda, "segment_table"), (pairhmm_cuda, "stage_pairs"),
           (pairhmm_cuda, "stage_reads"), (pairhmm_cuda, "stack_tracks"),
           (pairhmm_cuda, "read_planes"), (pairhmm_cuda, "rescale_shared"),
-          (pairhmm_cuda, "pairhmm_shared_f32"))
+          (pairhmm_cuda, "pairhmm_shared_f32"),
+          (pairhmm_cuda, "pairhmm_banded_f64"))
 
 
 def _ranged(name: str, fn):

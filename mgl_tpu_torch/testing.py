@@ -153,6 +153,23 @@ def shared_edge_set(seed: int, read_lens, hap_len: int = 120
     return reads, haps
 
 
+def pair_edge_set(seed: int, read_lens, hap_lens
+                  ) -> tuple[list[dict], list[np.ndarray], list[tuple]]:
+    """Reads of ``read_lens`` bases against haps of ``hap_lens`` bases, all
+    pairs (read-major): the haps are prefixes of one random sequence, each
+    with one SNP past its first base, and every third read is random, the
+    others slices of that sequence (tiled where longer) - the per-pair
+    kernels' edges of read bands and hap lengths."""
+    rng = np.random.default_rng(seed)
+    base = rng.choice(ACGT, max(hap_lens))
+    haps = [snp(base[:n], int(rng.integers(1, n))) if n > 1 else base[:1]
+            for n in hap_lens]
+    reads = [_tiled_read(rng, base, n, k % 3 == 2)
+             for k, n in enumerate(read_lens)]
+    pairs = [(r, h) for r in range(len(reads)) for h in range(len(haps))]
+    return reads, haps, pairs
+
+
 def long_hap_set(seed: int, n_reads: int = 300, n_haps: int = 24,
                  hap_len: int = 1000, read_len: int = 100
                  ) -> tuple[list[dict], list[np.ndarray]]:
