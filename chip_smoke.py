@@ -19,10 +19,10 @@ banded kernels.  Phases:
 
 0. environment (card, power limit, CUDA, nvcc, the port's host library);
 1. build of the kernels;
-2. each kernel vs its plain version on the card, bit for bit (the three
-   pipelined kernels - banded SW, per-pair and shared PairHMM - at every
-   warps-a-block count W, with the carry row in shared and in global
-   memory);
+2. each kernel vs its plain version on the card, bit for bit (the four
+   pipelined kernels - banded and plane SW, per-pair and shared PairHMM -
+   at every warps-a-block count W, with the carry row in shared and in
+   global memory);
 3. all SW golden cases, CIGAR and offset exact;
 4. PairHMM known answers and golden rows through the cascade;
 5. the main path at a realistic size, with launch counts and times;
@@ -31,7 +31,8 @@ banded kernels.  Phases:
    bit-equal to the banded kernels, with launch counts;
 8. kernel and plain times at the main path's shapes, with bounds, and
    the pipelined kernels' W sweeps (registers and spills, warps an SM,
-   carry placement).
+   carry placement); the plane SW kernel also into preallocated outputs,
+   apart from its wrapper's zero fill.
 
 Any failed phase raises and the script exits non-zero.  The last line is
 one JSON object naming the device; the line before it lists the kernels
@@ -43,6 +44,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -56,11 +58,11 @@ PEAK = {"f32": 67e12, "f64": 34e12, "int32": 132 * 64 * 1.98e9,
         "bytes": 3.35e12}
 # operations a cell, counted from the sources: PairHMM 7 multiplies and
 # 4 adds (pairhmm_banded.cu, pairhmm_shared.cu, pairhmm_plane.cu); SW 12
-# integer ops for the scores and 18 more for the traceback nibble
-# (sw_banded.cu:207-226), the same for the plane kernel's traceback and
-# samples modes; its best-score mode 11 (sw_plane.cu:117-127: two gaps
-# of two subtractions and a maximum, the substitution's compare, select
-# and add, and two maxima)
+# integer ops for the scores and 18 more for the traceback nibble (the
+# step of sw_wavefront.cuh:235-255), the same for the plane kernel's
+# traceback and samples modes; its best-score mode 11 (two gaps of two
+# subtractions and a maximum, the substitution's compare, select and add,
+# and two maxima)
 FLOPS_PER_CELL = 11
 SW_OPS_PER_CELL = {True: 30, False: 12}
 SW_SCORE_OPS_PER_CELL = 11
@@ -97,32 +99,40 @@ def compare_sw(args, indel_init: bool, with_traceback: bool, warps) -> int:
 def sw_plane_mode(args, indel_init: bool, mode: str):
     """(kernel call, plain call, integer ops a cell) of the plane SW in
     ``mode`` (traceback, samples, scores); each call returns a tuple of
-    output tensors."""
+    output tensors, the kernel call at the W it is given (None: the
+    wrapper's choice)."""
     from mgl_tpu_torch.kernels import sw_cuda
     from mgl_tpu_torch.ops.sw import sw_plane_plain, sw_plane_scores_plain
 
     if mode == "scores":
         kw = dict(indel_init=indel_init)
-        return (lambda: (sw_cuda.sw_plane_scores(*args, *SW_PARAMS, **kw),),
+        return (lambda w=None: (sw_cuda.sw_plane_scores(
+                    *args, *SW_PARAMS, **kw, warps_per_pair=w),),
                 lambda: (sw_plane_scores_plain(*args, *SW_PARAMS, **kw),),
                 SW_SCORE_OPS_PER_CELL)
     kw = dict(indel_init=indel_init, with_traceback=mode == "traceback")
-    return (lambda: sw_cuda.sw_plane(*args, *SW_PARAMS, **kw),
+    return (lambda w=None: sw_cuda.sw_plane(*args, *SW_PARAMS, **kw,
+                                            warps_per_pair=w),
             lambda: sw_plane_plain(*args, *SW_PARAMS, **kw),
             SW_OPS_PER_CELL[mode == "traceback"])
 
 
-def compare_sw_plane(args, indel_init: bool, mode: str) -> int:
-    """Plane kernel vs plain on the card in ``mode``: the largest
-    difference over every output (0 when bit-equal; words outside the real
-    cells are zero in both)."""
+def compare_sw_plane(args, indel_init: bool, mode: str, warps=(None,)) -> int:
+    """Plane kernel at each W of ``warps`` (None: the wrapper's choice) vs
+    plain on the card in ``mode``: the largest difference over every
+    output (0 when bit-equal; words outside the real cells are zero in
+    both)."""
     import torch
 
     run, run_plain, _ = sw_plane_mode(args, indel_init, mode)
-    got, want = run(), run_plain()
-    torch.cuda.synchronize()
-    return max(int((g.long() - w.long()).abs().max()) for g, w in
-               zip(got, want))
+    want = run_plain()
+    err = 0
+    for w in warps:
+        got = run(w)
+        torch.cuda.synchronize()
+        err = max(err, *(int((g.long() - x.long()).abs().max())
+                         for g, x in zip(got, want)))
+    return err
 
 
 def compare_pairhmm(args, kernel, warps=(None,)) -> float:
@@ -188,7 +198,8 @@ def main() -> int:
     from mgl_tpu_torch.testing import (ACGT, cuda_ms, engine_region,
                                        golden_groups, golden_read,
                                        load_golden, long_hap_set,
-                                       pair_edge_set, queued_ms,
+                                       pair_edge_set, plane_outputs,
+                                       queued_ms,
                                        shared_on_and_off, snp,
                                        sw_pairs,
                                        sw_tensors, timed_calls,
@@ -252,13 +263,18 @@ def main() -> int:
                 raise AssertionError(f"SW kernel != plain ({strategy.name}, "
                                      f"traceback={tb}): {e}")
             err["sw_banded"] = max(err["sw_banded"], e)
-        for mode in ("traceback", "samples", "scores"):
-            e = compare_sw_plane(args, indel, mode)
+        for mode in sw_cuda.PLANE_MODES:
+            e = compare_sw_plane(args, indel, mode,
+                                 (None, *sw_cuda.BANDED_WARPS))
             if e:
                 raise AssertionError(f"SW plane kernel != plain "
                                      f"({strategy.name}, {mode}): {e}")
             name = "sw_plane_scores" if mode == "scores" else "sw_plane"
             err[name] = max(err[name], e)
+    plane_placed = {m: {"shared" if sw_cuda.plane_carry_in_shared(
+        len(targets), args[1].shape[1], w, k, dev) else "global"
+        for w in sw_cuda.BANDED_WARPS}
+        for k, m in enumerate(sw_cuda.PLANE_MODES)}
     # a bucket of 2,048 queries of 1-2 kb: with its carry row in shared
     # memory 12 blocks would fit an SM that gets 16, so the launcher keeps
     # the rows in global memory - that path against the plain version too
@@ -273,6 +289,16 @@ def main() -> int:
         if e:
             raise AssertionError(f"SW kernel != plain (global-memory carry, "
                                  f"traceback={tb}): {e}")
+    for k, mode in enumerate(sw_cuda.PLANE_MODES):
+        if any(sw_cuda.plane_carry_in_shared(2048, gargs[1].shape[1], w, k,
+                                             dev) for w in (1, 2)):
+            raise AssertionError(f"SW plane kernel ({mode}): the 2,048 long "
+                                 f"queries did not take the global-memory "
+                                 f"carry")
+        e = compare_sw_plane(gargs, False, mode, (None, 1, 2))
+        if e:
+            raise AssertionError(f"SW plane kernel != plain (global-memory "
+                                 f"carry, {mode}): {e}")
     del gargs
     kat = load_golden("pairhmm_kat.json")
     kat_reads = [golden_read(c) for c in kat]
@@ -378,8 +404,10 @@ def main() -> int:
         f"W and at W = {', '.join(map(str, sw_cuda.BANDED_WARPS))} warps a "
         f"pair, and 2,048 pairs of 1-64 x 1,000-2,000 bp (carry row in "
         f"global memory) at W = 1, 2, ez and real-cell nibbles equal; plane "
-        f"x 3 modes (traceback, "
-        f"samples, best score), every output equal; PairHMM plane f32 on "
+        f"x 3 modes (traceback, samples, best score) on both sets at the "
+        f"same W, every output equal (carry row of the 1,024 pairs at W = "
+        f"1..32 by mode: {plane_placed}; of the 2,048: global); PairHMM "
+        f"plane f32 on "
         f"{len(kat)} KAT + {len(rnd_pairs)} random ragged pairs: equal; "
         f"PairHMM banded f32 and f64 on those, the {len(golden)} golden rows "
         f"and reads of 1-700 bp against a hap of 30 kb (f32) or 16 kb (f64) "
@@ -679,7 +707,7 @@ def main() -> int:
         # 150 bp (which is not run at 8000 x 2000) and to the banded ez
         ez_b = sw_cuda.sw_banded(*args, *SW_PARAMS, indel_init=False,
                                  with_traceback=False)[0]
-        for mode in ("traceback", "samples", "scores"):
+        for mode_i, mode in enumerate(sw_cuda.PLANE_MODES):
             run, run_plain, ops = sw_plane_mode(args, False, mode)
             k_ms = cuda_ms(run, iters)
             out = run()
@@ -709,12 +737,75 @@ def main() -> int:
                 if mode != "samples":
                     ms[name], plain_ms[name] = k_ms, p_ms
                     bounds[name] = (b_ms, b_by)
+            # the kernel alone into preallocated outputs, at the wrapper's W
+            # and over every W up to the bands (each equal to the wrapper's
+            # outputs), and the wrapper's zero fill alone
+            T, Q = args[0].shape[1], args[1].shape[1]
+            p_chosen = sw_cuda.pipeline_warps("sw_plane", len(ts), T, Q,
+                                              None, sms)
+            sweep = {}
+            for w in [p_chosen] + [w for w in sw_cuda.BANDED_WARPS
+                                   if w <= nb and w != p_chosen]:
+                outs = plane_outputs(mode_i, len(ts), T, Q, dev)
+                sweep[w] = cuda_ms(lambda: sw_cuda._sw_plane(
+                    mode_i, *args, *SW_PARAMS, False, outs,
+                    warps_per_pair=w), iters)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(outs, out)):
+                    raise AssertionError(f"SW plane {mode} W={w} at {label} "
+                                         f"!= the wrapper's outputs")
+                del outs
+            fill_ms = cuda_ms(lambda: [o.zero_() for o in out], iters)
             del out
+            carry = ("shared" if sw_cuda.plane_carry_in_shared(
+                len(ts), Q, p_chosen, mode_i, dev) else "global")
             log(f"    SW plane {mode} {len(ts)} x {label}: kernel {k_ms:.3f} "
-                f"ms = {cells / k_ms / 1e6:.2f} GCUPS; plain torch {p_text}; "
-                f"bound {b_ms:.4f} ms ({b_by}); equal to "
-                f"{'plain and ' if label == '150x150' else ''}the banded ez; "
-                f"card {card}")
+                f"ms = {cells / k_ms / 1e6:.2f} GCUPS with the wrapper's "
+                f"allocation and zero fill ({fill_ms:.3f} ms alone); into "
+                f"preallocated outputs {sweep[p_chosen]:.3f} ms at W = "
+                f"{p_chosen} (chosen, carry row in {carry} memory), by W "
+                f"{ {w: round(v, 4) for w, v in sweep.items()} }; plain torch "
+                f"{p_text}; bound {b_ms:.4f} ms ({b_by}); equal to "
+                f"{'plain and ' if label == '150x150' else ''}the banded ez, "
+                f"every W equal; card {card}")
+
+    # the plane path's 12 golden-group launches (traceback, each group's
+    # own W and indel rule), together, against their plain versions
+    g_args = [(sw_tensors([r["target"].encode() for r in rs],
+                          [r["query"].encode() for r in rs], dev),
+               SWParameters.normalized(m, x, o, e),
+               bool(s & (OverhangStrategy.INDEL | OverhangStrategy.LEADING_INDEL)))
+              for (m, x, o, e, s), rs in groups.items()]
+
+    def golden_launches(kernel):
+        return [kernel(*a, p.match, p.mismatch, p.gap_open, p.gap_extend,
+                       indel_init=ii) for a, p, ii in g_args]
+
+    k_ms = cuda_ms(lambda: golden_launches(sw_cuda.sw_plane), 5)
+    got = golden_launches(sw_cuda.sw_plane)
+    want, p_ms = timed_calls(lambda: golden_launches(sw_cuda.sw_plane_plain))
+    if not all(torch.equal(a, b) for g, w in zip(got, want)
+               for a, b in zip(g, w)):
+        raise AssertionError("SW plane golden groups != plain")
+    g_cells = sum(len(r["target"]) * len(r["query"]) for r in sw_rows)
+    g_bound = bound(g_cells * SW_OPS_PER_CELL[True], "int32",
+                    sum(nbytes(*a, *o) for (a, _, _), o in zip(g_args, got)))
+    log(f"    SW plane traceback, the {len(g_args)} golden-group launches "
+        f"({len(sw_rows)} pairs, {g_cells} real cells; W "
+        f"{[sw_cuda.pipeline_warps('sw_plane', a[0].shape[0], a[0].shape[1], a[1].shape[1], None, sms) for a, _, _ in g_args]}): "
+        f"{k_ms:.3f} ms for the {len(g_args)} wrapper calls (allocation, "
+        f"zero fill, kernel); plain torch {p_ms:.3f} "
+        f"ms; bound {g_bound[0]:.4f} ms ({g_bound[1]}); equal; card {card}")
+    del g_args, got, want
+
+    # registers and spills of each (output layout, carry row in shared
+    # memory) instance of the SW wavefront kernel, read from the build log
+    regs = {tuple(map(int, re.search(r"ILi(\d)ELb(\d)E", r["entry"]).groups())):
+            (r["registers"], r.get("spill_stores"), r.get("spill_loads"))
+            for r in _build.kernel_resources("sw_wavefront_kernel")}
+    log(f"    SW wavefront registers and spills by (Out: 0 banded words, 1 "
+        f"banded score-only, 2 plane words, 3 samples, 4 best score; carry "
+        f"row in shared memory): {dict(sorted(regs.items()))}")
 
     # the per-pair kernels: f32 at the product-mode region's 384 pairs and
     # at a 512 x 12 region's 6,144, f64 at its 384 rescue pairs (every 16th

@@ -62,7 +62,8 @@ _ENTRIES = {
     "mgl_pairhmm_shared_f32": [_P] * 5 + [_I] * 4
                               + [ctypes.c_float, _I, _I] + [_P] * 3,
     "mgl_pairhmm_shared_carry_in_shared": [_I] * 3,
-    "mgl_sw_plane": [_P] * 4 + [_I] * 11 + [_P] * 3,
+    "mgl_sw_plane": [_P] * 4 + [_I] * 12 + [_P] * 4,
+    "mgl_sw_plane_carry_in_shared": [_I] * 4,
     "mgl_pairhmm_plane_f32": [_P] * 8 + [_I] * 3 + [_P] * 2,
 }
 _I64 = ctypes.c_int64

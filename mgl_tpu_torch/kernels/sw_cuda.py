@@ -26,12 +26,12 @@ from mgl_tpu_torch.ops.sw import (BAND, EZ_KEYS, banded_layout, plane_words,
                                   sw_banded_plain, sw_plane_plain,
                                   sw_plane_scores_plain)
 
-# the plane kernel's shared-memory ring: 7 int arrays of a power of two
-# >= min(T, Q) + 2 rows within the 227 KB a block may take
-PLANE_RING_MAX = 8192
-# the banded kernel's warps a pair: powers of two up to 32, the least that
-# puts WARPS_PER_SM warps on each SM that holds a pair
+# the pipelined SW kernel's warps a pair (sw_banded, sw_plane,
+# sw_plane_scores): powers of two up to 32, the least that puts
+# WARPS_PER_SM warps on each SM that holds a pair
 BANDED_WARPS = (1, 2, 4, 8, 16, 32)
+# the plane kernel's modes, as csrc/sw_plane.cu numbers them
+PLANE_MODES = ("traceback", "samples", "scores")
 
 
 def _check_pairs(fn: str, tgt, qry, tlen, qlen) -> None:
@@ -67,19 +67,57 @@ def banded_warps(n_pairs: int, n_bands: int, sm_count: int) -> int:
     return w
 
 
+def check_warps(warps_per_pair: int | None) -> None:
+    """Refuse a forced W outside BANDED_WARPS (None: the wrapper picks)."""
+    if warps_per_pair is not None and warps_per_pair not in BANDED_WARPS:
+        raise ValueError(f"warps_per_pair: one of {BANDED_WARPS}, got "
+                         f"{warps_per_pair}")
+
+
+def pipeline_warps(fn: str, n_pairs: int, t: int, q: int,
+                   warps_per_pair: int | None, sm_count: int) -> int:
+    """W of one launch of the pipelined SW kernel (``fn``: sw_banded,
+    sw_plane or sw_plane_scores) over n_pairs pairs padded to t x q on a
+    card of sm_count SMs: ``warps_per_pair`` if given, else
+    :func:`banded_warps`.  Raises if a pair's progress would overflow the
+    kernel's int32 counters."""
+    nb = (t + BAND - 1) // BAND
+    if nb * (q + 1) >= 2 ** 31:
+        raise ValueError(f"{fn} counts a pair's progress in int32: "
+                         f"{t} x {q} is too large")
+    return warps_per_pair or banded_warps(n_pairs, nb, sm_count)
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _carry_in_shared(entry: str, n_pairs: int, q: int, warps_per_pair: int,
+                     mode: int, device) -> bool:
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        got = getattr(lib, entry)(n_pairs, q + BAND + 2, warps_per_pair, mode)
+    if got < 0:
+        _build.check_launch(lib, -got, entry)
+    return bool(got)
+
+
 def banded_carry_in_shared(n_pairs: int, q: int, warps_per_pair: int,
                            with_traceback: bool, device) -> bool:
     """Whether ``sw_banded`` keeps the carry row of n_pairs pairs of
     queries padded to q in shared memory on ``device`` (a CUDA device):
     the launcher's choice, from the block's opt-in limit and the blocks
     an SM holds either way."""
-    lib = _build.load_library()
-    with torch.cuda.device(device):
-        got = lib.mgl_sw_banded_carry_in_shared(
-            n_pairs, q + BAND + 2, warps_per_pair, int(with_traceback))
-    if got < 0:
-        _build.check_launch(lib, -got, "sw_banded")
-    return bool(got)
+    return _carry_in_shared("mgl_sw_banded_carry_in_shared", n_pairs, q,
+                            warps_per_pair, int(with_traceback), device)
+
+
+def plane_carry_in_shared(n_pairs: int, q: int, warps_per_pair: int,
+                          mode: int, device) -> bool:
+    """The same for the plane kernel in ``mode`` (0 traceback, 1 samples,
+    2 best score: the index in PLANE_MODES)."""
+    return _carry_in_shared("mgl_sw_plane_carry_in_shared", n_pairs, q,
+                            warps_per_pair, mode, device)
 
 
 def sw_banded(tgt: torch.Tensor, qry: torch.Tensor, tlen: torch.Tensor,
@@ -94,9 +132,7 @@ def sw_banded(tgt: torch.Tensor, qry: torch.Tensor, tlen: torch.Tensor,
     forces W (one of BANDED_WARPS; by default :func:`banded_warps`): every
     W gives the same bits."""
     _check_pairs("sw_banded", tgt, qry, tlen, qlen)
-    if warps_per_pair is not None and warps_per_pair not in BANDED_WARPS:
-        raise ValueError(f"warps_per_pair: one of {BANDED_WARPS}, got "
-                         f"{warps_per_pair}")
+    check_warps(warps_per_pair)
     if tgt.device.type == "cpu":
         return sw_banded_plain(tgt, qry, tlen, qlen, match, mismatch,
                                gap_open, gap_ext, indel_init=indel_init,
@@ -104,13 +140,9 @@ def sw_banded(tgt: torch.Tensor, qry: torch.Tensor, tlen: torch.Tensor,
     B, T = tgt.shape
     Q = qry.shape[1]
     nb, wpb = banded_layout(T, Q)
-    if nb * (Q + 1) >= 2 ** 31:
-        raise ValueError(f"sw_banded counts a pair's progress in int32: "
-                         f"{T} x {Q} is too large")
     dev = tgt.device
-    if warps_per_pair is None:
-        warps_per_pair = banded_warps(
-            B, nb, torch.cuda.get_device_properties(dev).multi_processor_count)
+    warps_per_pair = pipeline_warps("sw_banded", B, T, Q, warps_per_pair,
+                                    _sm_count(dev))
     carry_cols = Q + BAND + 2
     tgt, qry = tgt.contiguous(), qry.contiguous()
     tlen, qlen = tlen.contiguous(), qlen.contiguous()
@@ -136,36 +168,45 @@ sw_banded.launches = 0
 
 
 def _sw_plane(mode: int, tgt, qry, tlen, qlen, match, mismatch, gap_open,
-              gap_ext, indel_init: bool, outs: tuple[torch.Tensor, ...]
-              ) -> None:
+              gap_ext, indel_init: bool, outs: tuple[torch.Tensor, ...],
+              warps_per_pair: int | None = None) -> None:
     """Launch ``csrc/sw_plane.cu`` in ``mode`` (0 traceback, 1 samples,
-    2 best score) into the preallocated ``outs``."""
+    2 best score) into the preallocated ``outs``, W as
+    :func:`pipeline_warps` picks it."""
     B, T = tgt.shape
     Q = qry.shape[1]
-    ring = 1 << (min(T, Q) + 1).bit_length()       # a power of two > min + 1
-    if ring > PLANE_RING_MAX:
-        raise ValueError(f"the plane SW kernel takes min(T, Q) up to "
-                         f"{PLANE_RING_MAX - 2}, got {T} x {Q}")
+    if mode == 0 and plane_words(T, Q) * (T + 1) >= 2 ** 31:
+        raise ValueError(f"sw_plane addresses a pair's traceback words in "
+                         f"int32: {T} x {Q} is too large")
+    dev = tgt.device
+    warps = pipeline_warps("sw_plane", B, T, Q, warps_per_pair,
+                           _sm_count(dev))
+    carry_cols = Q + BAND + 2
     args = [x.contiguous() for x in (tgt, qry, tlen, qlen)]
+    carry = torch.empty((B, 2, carry_cols), dtype=torch.int32, device=dev)
     lib = _build.load_library()
-    with torch.cuda.device(tgt.device):
+    with torch.cuda.device(dev):
         code = lib.mgl_sw_plane(
             *(a.data_ptr() for a in args), B, T, Q, int(match), int(mismatch),
-            int(gap_open), int(gap_ext), int(indel_init), mode, ring,
-            plane_words(T, Q), *(o.data_ptr() for o in outs),
-            *([None] * (2 - len(outs))),
-            torch.cuda.current_stream(tgt.device).cuda_stream)
+            int(gap_open), int(gap_ext), int(indel_init), mode,
+            plane_words(T, Q), carry_cols, warps, carry.data_ptr(),
+            *(o.data_ptr() for o in outs), *([None] * (2 - len(outs))),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(lib, code, "sw_plane")
 
 
 def sw_plane(tgt: torch.Tensor, qry: torch.Tensor, tlen: torch.Tensor,
              qlen: torch.Tensor, match: int, mismatch: int, gap_open: int,
-             gap_ext: int, *, indel_init: bool, with_traceback: bool = True):
+             gap_ext: int, *, indel_init: bool, with_traceback: bool = True,
+             warps_per_pair: int | None = None):
     """Plane SW over B pairs, arguments as :func:`sw_banded`.  Traceback
     mode: (ez (6, B) int32, words (B, plane_words(T, Q), T+1) int32 in the
     plane layout); samples mode (``with_traceback=False``): (lc, lr), each
-    (B, T+Q-1) int32 - as :func:`mgl_tpu_torch.ops.sw.sw_plane_plain`."""
+    (B, T+Q-1) int32 - as :func:`mgl_tpu_torch.ops.sw.sw_plane_plain`.
+    ``warps_per_pair`` forces W as in :func:`sw_banded`; every W gives
+    the same bits."""
     _check_pairs("sw_plane", tgt, qry, tlen, qlen)
+    check_warps(warps_per_pair)
     if tgt.device.type == "cpu":
         return sw_plane_plain(tgt, qry, tlen, qlen, match, mismatch,
                               gap_open, gap_ext, indel_init=indel_init,
@@ -181,25 +222,26 @@ def sw_plane(tgt: torch.Tensor, qry: torch.Tensor, tlen: torch.Tensor,
         outs = (torch.zeros((B, T + Q - 1), dtype=torch.int32, device=dev),
                 torch.zeros((B, T + Q - 1), dtype=torch.int32, device=dev))
     _sw_plane(0 if with_traceback else 1, tgt, qry, tlen, qlen, match,
-              mismatch, gap_open, gap_ext, indel_init, outs)
+              mismatch, gap_open, gap_ext, indel_init, outs, warps_per_pair)
     sw_plane.launches += 1
     return outs
 
 
 def sw_plane_scores(tgt: torch.Tensor, qry: torch.Tensor, tlen: torch.Tensor,
                     qlen: torch.Tensor, match: int, mismatch: int,
-                    gap_open: int, gap_ext: int, *, indel_init: bool
-                    ) -> torch.Tensor:
+                    gap_open: int, gap_ext: int, *, indel_init: bool,
+                    warps_per_pair: int | None = None) -> torch.Tensor:
     """(B,) int32 best alignment score of each pair by the plane kernel's
     best-score mode, arguments as :func:`sw_banded` - as
     :func:`mgl_tpu_torch.ops.sw.sw_plane_scores_plain`."""
     _check_pairs("sw_plane_scores", tgt, qry, tlen, qlen)
+    check_warps(warps_per_pair)
     if tgt.device.type == "cpu":
         return sw_plane_scores_plain(tgt, qry, tlen, qlen, match, mismatch,
                                      gap_open, gap_ext, indel_init=indel_init)
     out = torch.empty((tgt.shape[0],), dtype=torch.int32, device=tgt.device)
     _sw_plane(2, tgt, qry, tlen, qlen, match, mismatch, gap_open, gap_ext,
-              indel_init, (out,))
+              indel_init, (out,), warps_per_pair)
     sw_plane_scores.launches += 1
     return out
 

@@ -2,14 +2,20 @@
 shapes ``chip_smoke.py`` drives.
 
     python -m mgl_tpu_torch.profile_e2e [--repeats 3] [--out FILE]
+                                        [--workloads NAME,NAME]
 
 Workloads: ``SmithWatermanAligner.align_batch`` on 10,000 pairs of 150 bp
 (traceback + host CIGAR decode); ``PairHmmEngine.compute_likelihoods``
 on 8 GATK-shaped regions of 512 reads x 12 haps (151 x 420 bp, every 16th
-read in the f64 rescue tier), which take the shared-hap-set kernel; and
+read in the f64 rescue tier), which take the shared-hap-set kernel;
 ``PairHmmEngine.compute_likelihoods_stream`` over the same 8 regions,
 which overlaps each region's host work with the card's work on the one
-before.  Each runs once cold, then ``--repeats``
+before; and the SW plane path as ``chip_smoke.py`` phase 7 drives it:
+the 1,972 SW goldens through ``sw_cuda.align_batch``, one launch a
+parameter group (12), and the 10,000 pairs of 150 bp over the aligner's
+buckets through ``sw_cuda.align_batch`` and ``sw_cuda.sw_plane_scores``
+(``--workloads`` picks some of them by name; the plane ones run on an
+older tree too).  Each runs once cold, then ``--repeats``
 times warm on the host clock, then once more warm under
 ``torch.profiler``.  For that profiled call it prints the wall time, the
 device busy time (the union of the kernel and copy intervals the profiler
@@ -32,15 +38,19 @@ import time
 import torch
 
 from mgl_tpu_torch import api
+from mgl_tpu_torch.batch.bucketing import bucket_pairs
 from mgl_tpu_torch.kernels import pairhmm_cuda, sw_cuda
 from mgl_tpu_torch.ops import pairhmm
-from mgl_tpu_torch.testing import engine_region, sw_pairs
+from mgl_tpu_torch.testing import (engine_region, golden_groups, load_golden,
+                                   sw_pairs, sw_tensors)
 
 # (module, function name) put under a record_function range of that name
 # (nested ranges count in their parent's total too)
 STAGES = ((api, "bucket_pairs"), (api, "_checked_reads"),
           (sw_cuda, "align_batch_banded"), (sw_cuda, "pack_sequences"),
-          (sw_cuda, "decode_cigars"),
+          (sw_cuda, "decode_cigars"), (sw_cuda, "align_batch"),
+          (sw_cuda, "_traceback"), (sw_cuda, "cigar_decode_bulk"),
+          (sw_cuda, "sw_plane_scores"),
           (pairhmm, "normalize"), (pairhmm, "_dedup_haps"),
           (pairhmm, "use_shared_kernel"), (pairhmm, "_bucketed_start"),
           (pairhmm, "bucket_pairs"), (pairhmm, "_finish_start"),
@@ -51,6 +61,11 @@ STAGES = ((api, "bucket_pairs"), (api, "_checked_reads"),
           (pairhmm_cuda, "read_planes"), (pairhmm_cuda, "rescale_shared"),
           (pairhmm_cuda, "pairhmm_shared_f32"),
           (pairhmm_cuda, "pairhmm_banded_f64"))
+
+
+WORKLOADS = ("sw_10000x150_traceback", "engine_8x512x12",
+             "engine_stream_8x512x12", "plane_sw_goldens",
+             "plane_sw_10000x150")
 
 
 def _ranged(name: str, fn):
@@ -135,7 +150,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--out", help="also write the JSON report here")
+    ap.add_argument("--workloads", default=",".join(WORKLOADS),
+                    help=f"comma-separated, of {', '.join(WORKLOADS)}")
     args = ap.parse_args(argv)
+    names = args.workloads.split(",")
+    if not set(names) <= set(WORKLOADS):
+        ap.error(f"--workloads: of {', '.join(WORKLOADS)}")
     if not torch.cuda.is_available():
         print("profile_e2e needs an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -152,17 +172,42 @@ def main(argv=None) -> int:
     regions = [engine_region(100 + k) for k in range(8)]
     params = api.SWParameters(25, -50, 110, 6)
     soft = api.OverhangStrategy.SOFTCLIP
+    gold = [([r["target"].encode() for r in rs],
+             [r["query"].encode() for r in rs],
+             api.SWParameters.normalized(m, x, o, e), api.OverhangStrategy(s))
+            for (m, x, o, e, s), rs in
+            golden_groups(load_golden("sw_golden.jsonl")).items()]
+    buckets = [([sw_t[k] for k in idx], [sw_q[k] for k in idx]) for _, idx
+               in bucket_pairs([len(t) for t in sw_t], [len(q) for q in sw_q],
+                               max_batch=aligner.max_batch)]
+
+    def plane_150():
+        out = []
+        for ts, qs in buckets:
+            out += sw_cuda.align_batch(ts, qs, params, soft, dev)
+            sw_cuda.sw_plane_scores(*sw_tensors(ts, qs, dev), params.match,
+                                    params.mismatch, params.gap_open,
+                                    params.gap_extend, indel_init=False)
+        return out
+
+    calls = {
+        "sw_10000x150_traceback": (
+            lambda: aligner.align_batch(sw_t, sw_q, params, soft), len(sw_t)),
+        "engine_8x512x12": (
+            lambda: [engine.compute_likelihoods(r, h) for r, h in regions],
+            sum(len(r) * len(h) for r, h in regions)),
+        "engine_stream_8x512x12": (
+            lambda: list(engine.compute_likelihoods_stream(iter(regions))),
+            sum(len(r) * len(h) for r, h in regions)),
+        "plane_sw_goldens": (
+            lambda: [sw_cuda.align_batch(*g, dev) for g in gold],
+            sum(len(g[0]) for g in gold)),
+        "plane_sw_10000x150": (plane_150, len(sw_t)),
+    }
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "workloads": [
-        profile("sw_10000x150_traceback",
-                lambda: aligner.align_batch(sw_t, sw_q, params, soft),
-                len(sw_t), args.repeats),
-        profile("engine_8x512x12",
-                lambda: [engine.compute_likelihoods(r, h) for r, h in regions],
-                sum(len(r) * len(h) for r, h in regions), args.repeats),
-        profile("engine_stream_8x512x12",
-                lambda: list(engine.compute_likelihoods_stream(iter(regions))),
-                sum(len(r) * len(h) for r, h in regions), args.repeats)]}
+                  profile(name, *calls[name], args.repeats)
+                  for name in names]}
 
     print(f"card: {card} (nvidia-smi name, power.limit)")
     for w in report["workloads"]:

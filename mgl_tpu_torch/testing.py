@@ -15,7 +15,7 @@ import time
 import numpy as np
 import torch
 
-from mgl_tpu_torch.ops.sw import BAND
+from mgl_tpu_torch.ops.sw import BAND, plane_words
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 GOLDEN = pathlib.Path(__file__).resolve().parents[1] / "tests" / "golden"
@@ -71,6 +71,24 @@ def sw_pairs(seed: int, n: int, tlen_range: tuple[int, int],
             [q, rng.choice(ACGT, ql - len(q))])
         targets.append(t.tobytes())
         queries.append(q.tobytes())
+    return targets, queries
+
+
+def sw_edge_pairs(seed: int) -> tuple[list[bytes], list[bytes]]:
+    """Pairs of 1-700 x 1-300 bases, with tlen 1, 31, 32, 33 and 95 among
+    them and one pair at tlen = T = 700: one launch of the pipelined SW
+    kernels mixes pairs of 1 to 22 bands, fewer and more than W.  The
+    last pair's one-base query makes row 33's E-extend bit depend on band
+    0's bottom row at column 1, which band 1 reads before its first
+    step."""
+    targets, queries = sw_pairs(seed, 120, (1, 700), (1, 300), err=0.08)
+    rng = np.random.default_rng(seed)
+    for tl, ql in ((1, 1), (31, 7), (32, 300), (33, 1), (95, 150), (1, 300),
+                   (700, 2), (64, 33)):
+        targets.append(rng.choice(ACGT, tl).tobytes())
+        queries.append(rng.choice(ACGT, ql).tobytes())
+    targets.append(b"C" * 30 + b"AC" + b"ACGT" * 10)
+    queries.append(b"A")
     return targets, queries
 
 
@@ -249,6 +267,19 @@ def plane_traceback_mismatches(words_a: torch.Tensor, words_b: torch.Tensor,
             real = (i >= 1) & (i <= tl) & (j >= 1) & (j <= ql)
             bad += int((((diff >> (4 * n)) & 0xF) != 0)[real].sum())
     return bad
+
+
+def plane_outputs(mode: int, n: int, t: int, q: int, dev):
+    """The plane kernel's outputs in ``mode`` (0 traceback, 1 samples, 2
+    best score), allocated as its wrapper allocates them."""
+    if mode == 0:
+        return (torch.empty((6, n), dtype=torch.int32, device=dev),
+                torch.zeros((n, plane_words(t, q), t + 1), dtype=torch.int32,
+                            device=dev))
+    if mode == 1:
+        return tuple(torch.zeros((n, t + q - 1), dtype=torch.int32,
+                                 device=dev) for _ in range(2))
+    return (torch.empty((n,), dtype=torch.int32, device=dev),)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:

@@ -9,13 +9,12 @@ also run on a GPU host without it:
 ``python -m pytest tests/test_torch_banded.py -m cuda``.
 """
 
-import numpy as np
 import pytest
 import torch
 
 from mgl_tpu_torch.kernels import sw_cuda
 from mgl_tpu_torch.ops.sw import banded_layout
-from mgl_tpu_torch.testing import (ACGT, sw_pairs, sw_tensors,
+from mgl_tpu_torch.testing import (sw_edge_pairs, sw_pairs, sw_tensors,
                                    traceback_mismatches)
 
 SW = (25, -50, 110, 6)                 # STANDARD_NGS
@@ -64,23 +63,6 @@ def test_forced_w_must_be_a_power_of_two_up_to_32():
         sw_cuda.sw_banded(*args, *SW, indel_init=False, warps_per_pair=3)
 
 
-def _ragged(seed: int) -> tuple[list[bytes], list[bytes]]:
-    """Pairs of 1-700 x 1-300 bases, with tlen 1, 31, 32, 33 and 95 among
-    them: one launch mixes pairs of 1 to 22 bands, fewer and more than W.
-    The last pair's one-base query makes row 33's E-extend bit depend on
-    band 0's bottom row at column 1, which band 1 reads before its first
-    step."""
-    targets, queries = sw_pairs(seed, 120, (1, 700), (1, 300), err=0.08)
-    rng = np.random.default_rng(seed)
-    for tl, ql in ((1, 1), (31, 7), (32, 300), (33, 1), (95, 150), (1, 300),
-                   (700, 2), (64, 33)):
-        targets.append(rng.choice(ACGT, tl).tobytes())
-        queries.append(rng.choice(ACGT, ql).tobytes())
-    targets.append(b"C" * 30 + b"AC" + b"ACGT" * 10)
-    queries.append(b"A")
-    return targets, queries
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_traceback", [True, False])
 @pytest.mark.parametrize("indel_init", [False, True])
@@ -88,7 +70,7 @@ def _ragged(seed: int) -> tuple[list[bytes], list[bytes]]:
 def test_every_w_matches_plain(cuda, warps, indel_init, with_traceback):
     """sw_banded with W forced equals sw_banded_plain: ez exact, nibbles
     equal on every real cell."""
-    args = sw_tensors(*_ragged(4), cuda)
+    args = sw_tensors(*sw_edge_pairs(4), cuda)
     kw = dict(indel_init=indel_init, with_traceback=with_traceback)
     ez_k, w_k = sw_cuda.sw_banded(*args, *SW, **kw, warps_per_pair=warps)
     ez_p, w_p = sw_cuda.sw_banded_plain(*args, *SW, **kw)

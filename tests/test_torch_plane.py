@@ -12,6 +12,14 @@ exact; PairHMM within 2e-6 relative above the 1e-28 gate.  On a card,
 each plane kernel against its plain version and against the banded
 kernel, bit for bit.  Small shapes and one thread.
 
+The plane SW kernel is the banded kernel's wavefront with another store
+(``csrc/sw_wavefront.cuh``), so the CPU also holds the layout identity it
+rests on (a plane word of row r is a banded word of lane (r-1) % 32 at
+the same phase), the plain versions at edge shapes against the scalar
+oracle ``mgl_tpu.ref_impl.sw_scalar.calculate_matrix``, and the warps-a-
+pair rule and refusals of the plane wrappers; on the card, every W in
+all three modes, with the carry row in shared and in global memory.
+
 The JAX package is imported inside the tests that call it, so the ``cuda``
 tests also run on a GPU host without jax:
 ``python -m pytest tests/test_torch_plane.py -m cuda``.
@@ -29,12 +37,13 @@ from mgl_tpu_torch.kernels import pairhmm_cuda as ph
 from mgl_tpu_torch.kernels import sw_cuda
 from mgl_tpu_torch.native import cigar_decode_bulk
 from mgl_tpu_torch.ops.pairhmm import forward_plain, normalize
-from mgl_tpu_torch.ops.sw import (EZ_KEYS, compute_score_max,
-                                  sw_plane_plain, sw_plane_scores_plain)
+from mgl_tpu_torch.ops.sw import (EZ_KEYS, banded_layout, compute_score_max,
+                                  sw_banded_plain, sw_plane_plain,
+                                  sw_plane_scores_plain)
 from mgl_tpu_torch.tables import CTX_F32, MIN_ACCEPTED
 from mgl_tpu_torch.testing import (ACGT, golden_groups,
-                                   plane_traceback_mismatches, sw_pairs,
-                                   sw_tensors)
+                                   plane_traceback_mismatches, sw_edge_pairs,
+                                   sw_pairs, sw_tensors)
 
 torch.set_num_threads(1)
 
@@ -274,6 +283,152 @@ def test_plane_wrappers_count_no_launch_on_cpu():
                             OverhangStrategy.SOFTCLIP, "cpu")
 
 
+def _u32(words: torch.Tensor) -> np.ndarray:
+    return words.numpy().view(np.uint32).astype(np.uint64)
+
+
+@pytest.mark.parametrize("seed, tlen, qlen", [
+    (51, (1, 70), (1, 50)),            # tl < 32 and 1-3 bands, ragged
+    (52, (33, 100), (20, 40)),         # tl past a band edge, tl >> ql
+    (53, (5, 40), (60, 100)),          # ql >> tl
+])
+def test_plane_words_are_banded_words_by_row(seed, tlen, qlen):
+    """The layout identity the plane kernel rests on, on the plain
+    versions: plane word 4b + t//8 of row r = 32b + s + 1 holds, on every
+    real cell, the nibbles of banded word b * WPB + t//8 at lane s (the
+    same phase t % 8), and every other nibble of the plane words is 0."""
+    tg, qr, tl, ql = sw_tensors(*sw_pairs(seed, 12, tlen, qlen, err=0.1),
+                                "cpu")
+    T, Q = tg.shape[1], qr.shape[1]
+    kw = dict(indel_init=True)
+    plane = _u32(sw_plane_plain(tg, qr, tl, ql, *_sw(STANDARD_NGS), **kw)[1])
+    banded = _u32(sw_banded_plain(tg, qr, tl, ql, *_sw(STANDARD_NGS),
+                                  **kw)[1])
+    wpb = banded_layout(T, Q)[1]
+    n_words = plane.shape[1]
+    shift = 4 * np.arange(8, dtype=np.uint64)
+    for i in range(tg.shape[0]):
+        t_len, q_len = int(tl[i]), int(ql[i])
+        # banded words of rows 1 .. tl: (rows, WPB), with their real nibbles
+        r = np.arange(1, t_len + 1)[:, None, None]
+        s, band = (r - 1) % 32, (r - 1) // 32
+        k = np.arange(wpb)[None, :, None]
+        c = 8 * k + np.arange(8)[None, None, :] - s + 1
+        mask = (((c >= 1) & (c <= q_len)) * (np.uint64(15) << shift)).sum(
+            -1, dtype=np.uint64)
+        word = 4 * band[..., 0] + k[..., 0]
+        assert (word[mask > 0] < n_words).all()
+        got = plane[i, np.minimum(word, n_words - 1), r[..., 0]]
+        want = banded[i, band[..., 0] * wpb + k[..., 0], s[..., 0]]
+        assert mask.sum() and not ((got ^ want) & mask).any(), i
+        # the plane words outside the pair's cells
+        w = np.arange(n_words)[:, None, None]
+        rr = np.arange(T + 1)[None, :, None]
+        cc = 8 * w + np.arange(8)[None, None, :] + 2 - rr
+        real = (rr >= 1) & (rr <= t_len) & (cc >= 1) & (cc <= q_len)
+        real_mask = (real * (np.uint64(15) << shift)).sum(-1,
+                                                           dtype=np.uint64)
+        assert not (plane[i] & ~real_mask).any(), i
+
+
+EDGE_SETS = {
+    "one_base": ((1, 1), (1, 6), (6, 1), (40, 1), (1, 40)),
+    "below_32": ((7, 20), (31, 31), (3, 9), (20, 5)),
+    "tall": ((100, 3), (77, 9), (64, 1)),
+    "wide": ((4, 90), (12, 100), (1, 64)),
+    "padded": ((100, 100), (5, 7), (20, 3), (2, 2)),
+}
+
+
+@pytest.mark.parametrize("strategy", [OverhangStrategy.SOFTCLIP,
+                                      OverhangStrategy.INDEL])
+@pytest.mark.parametrize("name", EDGE_SETS)
+def test_plane_plain_at_edge_shapes_equals_scalar(name, strategy):
+    """sw_plane_plain and sw_plane_scores_plain at edge shapes (one-base
+    queries and targets, tl < 32, tl >> ql, ql >> tl, lengths far below
+    the batch's padded T and Q) against the scalar oracle
+    calculate_matrix: ez exact, the move of every real cell's nibble the
+    sign of its backtrack entry, the best score its max."""
+    from mgl_tpu.ref_impl.sw_scalar import calculate_matrix
+
+    targets, queries = [], []
+    for k, (t, q) in enumerate(EDGE_SETS[name]):
+        tt, qq = sw_pairs(60 + k, 1, (t, t), (q, q), err=0.1)
+        targets += tt
+        queries += qq
+    tg, qr, tl, ql = sw_tensors(targets, queries, "cpu")
+    p = STANDARD_NGS
+    indel = strategy == OverhangStrategy.INDEL
+    ez, words = sw_plane_plain(tg, qr, tl, ql, *_sw(p), indel_init=indel)
+    best = sw_plane_scores_plain(tg, qr, tl, ql, *_sw(p), indel_init=indel)
+    words = _u32(words)
+    for i, (t, q) in enumerate(zip(targets, queries)):
+        btrack, want = calculate_matrix(np.frombuffer(t, np.uint8),
+                                        np.frombuffer(q, np.uint8), p,
+                                        strategy)
+        assert [int(ez[k, i]) for k in range(6)] == [want[k] for k in
+                                                     EZ_KEYS], (name, i)
+        assert int(best[i]) == want["max"], (name, i)
+        r = np.arange(1, len(t) + 1)[:, None]
+        c = np.arange(1, len(q) + 1)[None, :]
+        d2 = r + c - 2
+        move = (words[i, d2 // 8, r] >> (4 * (d2 % 8)).astype(np.uint64)) & 3
+        sign = np.sign(btrack[1:, 1:])
+        assert np.array_equal(move, np.where(sign < 0, 1, 2 * (sign > 0))), (
+            name, i)
+
+
+@pytest.mark.parametrize("fn, n_pairs, t, q, forced, want", [
+    ("sw_plane", 2048, 150, 150, None, 1),        # an aligner bucket
+    ("sw_plane_scores", 10_000, 150, 150, None, 1),
+    ("sw_plane", 64, 8000, 2000, None, 16),        # few long pairs
+    ("sw_plane", 164, 398, 414, None, 8),          # capped by 13 bands
+    ("sw_plane_scores", 3, 40, 40, 4, 4),          # forced
+])
+def test_plane_warps_rule(fn, n_pairs, t, q, forced, want):
+    """The plane wrappers take W as sw_banded does: the forced one, else
+    banded_warps over the launch's pairs and bands."""
+    w = sw_cuda.pipeline_warps(fn, n_pairs, t, q, forced, 132)
+    assert w == want
+    if forced is None:
+        assert w == sw_cuda.banded_warps(n_pairs, -(-t // 32), 132)
+
+
+@pytest.mark.parametrize("mode", sw_cuda.PLANE_MODES)
+def test_plane_wrappers_refuse_a_bad_warps_per_pair(mode):
+    """A forced W outside BANDED_WARPS is refused before anything runs,
+    in every mode; a W inside gives the plain result on the CPU."""
+    args = _pairs()
+    if mode == "scores":
+        call = lambda **kw: (sw_cuda.sw_plane_scores(
+            *args, *_sw(STANDARD_NGS), indel_init=False, **kw),)
+    else:
+        call = lambda **kw: sw_cuda.sw_plane(
+            *args, *_sw(STANDARD_NGS), indel_init=False,
+            with_traceback=mode == "traceback", **kw)
+    for w in (0, 3, 64):
+        with pytest.raises(ValueError, match="warps_per_pair"):
+            call(warps_per_pair=w)
+    assert all(torch.equal(a, b) for a, b in zip(call(warps_per_pair=2),
+                                                 call()))
+
+
+def test_plane_refuses_only_int32_overflows():
+    """The plane kernel's old min(T, Q) limit is gone: 9,000 x 9,000 takes
+    W = 16, and only a shape whose progress counters or whose traceback
+    offsets within a pair would overflow int32 is refused, before any
+    launch."""
+    assert sw_cuda.pipeline_warps("sw_plane", 4, 9000, 9000, None, 132) == 16
+    with pytest.raises(ValueError, match="progress in int32"):
+        sw_cuda.pipeline_warps("sw_plane", 1, 2 ** 20, 2 ** 16, None, 132)
+    n = 92_683                         # 23,170 words x 92,684 rows a pair
+    tg, qr = torch.zeros((1, n), dtype=torch.uint8), torch.zeros(
+        (1, n), dtype=torch.uint8)
+    tl = ql = torch.full((1,), n, dtype=torch.int32)
+    with pytest.raises(ValueError, match="traceback words in int32"):
+        sw_cuda._sw_plane(0, tg, qr, tl, ql, *_sw(STANDARD_NGS), False, ())
+
+
 # ---------------------------------------------------------------- on the card
 
 @pytest.mark.cuda
@@ -321,3 +476,52 @@ def test_plane_equals_banded_on_the_card(cuda, pairhmm_kat):
     torch.cuda.synchronize()
     assert torch.equal(plane, banded)
     assert torch.equal(plane, forward_plain(*staged))
+
+
+def _plane_call(args, mode, indel_init, warps=None):
+    """(kernel outputs, plain outputs) of the plane SW in ``mode``."""
+    kw = dict(indel_init=indel_init)
+    if mode == "scores":
+        return ((sw_cuda.sw_plane_scores(*args, 25, -50, 110, 6, **kw,
+                                         warps_per_pair=warps),),
+                (sw_plane_scores_plain(*args, 25, -50, 110, 6, **kw),))
+    kw["with_traceback"] = mode == "traceback"
+    return (sw_cuda.sw_plane(*args, 25, -50, 110, 6, **kw,
+                             warps_per_pair=warps),
+            sw_plane_plain(*args, 25, -50, 110, 6, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sw_cuda.PLANE_MODES)
+@pytest.mark.parametrize("warps", sw_cuda.BANDED_WARPS)
+def test_plane_every_w_matches_plain(cuda, warps, mode):
+    """Every W, 1 to 32, in each mode, with the carry row in shared memory:
+    every output equal to the plain version's, bit for bit, on pairs of
+    1 to 22 bands with one-base queries and a pair at tl = T."""
+    args = sw_tensors(*sw_edge_pairs(4), cuda)
+    assert sw_cuda.plane_carry_in_shared(
+        args[0].shape[0], args[1].shape[1], warps,
+        sw_cuda.PLANE_MODES.index(mode), cuda)
+    for indel_init in (False, True):
+        got, want = _plane_call(args, mode, indel_init, warps)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), indel_init
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sw_cuda.PLANE_MODES)
+def test_plane_global_carry_matches_plain(cuda, mode):
+    """2,048 queries of 1,000-2,000 bases against targets of 1-64: the
+    launcher keeps the carry row in global memory (in shared memory it
+    would cost resident blocks), and W = 1, 2 and the wrapper's give the
+    plain version's outputs, bit for bit."""
+    long_q, short_t = sw_pairs(12, 2048, (1000, 2000), (1, 64))
+    args = sw_tensors(short_t, long_q, cuda)
+    assert not any(sw_cuda.plane_carry_in_shared(
+        2048, args[1].shape[1], w, sw_cuda.PLANE_MODES.index(mode), cuda)
+        for w in (1, 2))
+    want = _plane_call(args, mode, False)[1]
+    for w in (None, 1, 2):
+        got = _plane_call(args, mode, False, w)[0]
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, x) for g, x in zip(got, want)), w
