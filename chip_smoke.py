@@ -19,10 +19,11 @@ banded kernels.  Phases:
 
 0. environment (card, power limit, CUDA, nvcc, the port's host library);
 1. build of the kernels;
-2. each kernel vs its plain version on the card, bit for bit (the four
-   pipelined kernels - banded and plane SW, per-pair and shared PairHMM -
-   at every warps-a-block count W, with the carry row in shared and in
-   global memory);
+2. each kernel vs its plain version on the card, bit for bit (the five
+   pipelined kernels - banded and plane SW, per-pair, plane and shared
+   PairHMM - at every warps-a-block count W, the plane PairHMM kernel at
+   every W and rows a lane R, with the carry row in shared and in global
+   memory);
 3. all SW golden cases, CIGAR and offset exact;
 4. PairHMM known answers and golden rows through the cascade;
 5. the main path at a realistic size, with launch counts and times;
@@ -32,7 +33,8 @@ banded kernels.  Phases:
 8. kernel and plain times at the main path's shapes, with bounds, and
    the pipelined kernels' W sweeps (registers and spills, warps an SM,
    carry placement); the plane SW kernel also into preallocated outputs,
-   apart from its wrapper's zero fill.
+   apart from its wrapper's zero fill; the plane PairHMM kernel beside
+   the banded f32 kernel on the same pairs, with its R x W sweep.
 
 Any failed phase raises and the script exits non-zero.  The last line is
 one JSON object naming the device; the line before it lists the kernels
@@ -135,18 +137,18 @@ def compare_sw_plane(args, indel_init: bool, mode: str, warps=(None,)) -> int:
     return err
 
 
-def compare_pairhmm(args, kernel, warps=(None,)) -> float:
-    """A per-pair PairHMM kernel vs the plain forward on the card, the
-    banded ones at each W of ``warps`` (None: the wrapper's choice): the
-    largest |difference| (0.0 when bit-equal)."""
+def compare_pairhmm(args, kernel, layouts=({},)) -> float:
+    """A per-pair PairHMM kernel vs the plain forward on the card at each
+    layout of ``layouts`` (the keywords that force it, {}: the wrapper's
+    choice): the largest |difference| (0.0 when bit-equal)."""
     import torch
 
     from mgl_tpu_torch.kernels import pairhmm_cuda as ph
 
     want = ph.forward_plain(*args)
     err = 0.0
-    for w in warps:
-        got = kernel(*args) if w is None else kernel(*args, warps_per_pair=w)
+    for kw in layouts:
+        got = kernel(*args, **kw)
         torch.cuda.synchronize()
         err = max(err, float((got.double() - want.double()).abs().max()))
     return err
@@ -320,11 +322,16 @@ def main() -> int:
     g_haps = [u8(r["hap"]) for r in golden]
     gn_reads, gn_haps = normalize(g_reads, g_haps)
     diag = [(k, k) for k in range(len(golden))]
-    # the per-pair kernels at every W the kernel takes, in f32 and f64: the
-    # KAT pairs, the random ragged set and the golden rows (carry row in
-    # shared memory), then reads of 1-700 bases against one hap of 16 kb
-    # (f64) or 30 kb (f32), whose row cannot lie in shared memory
+    # the per-pair kernels at every W the kernel takes, in f32 and f64, and
+    # the plane kernel at every R and W: the KAT pairs, the random ragged
+    # set and the golden rows (carry row in shared memory), then reads of
+    # 1-700 bases against one hap of 16 kb (f64) or 30 kb (f32), whose row
+    # cannot lie in shared memory
     pp_warps = (None, *range(1, ph.BANDED_WARPS_MAX + 1))
+    pp_layouts = [{}] + [dict(warps_per_pair=w) for w in pp_warps[1:]]
+    plane_layouts = [{}] + [dict(rows_per_lane=r, warps_per_pair=w)
+                            for r in ph.PLANE_ROWS_PER_LANE
+                            for w in pp_warps[1:]]
     pp_sets = [(kat_reads, kat_haps, [(k, k) for k in range(len(kat))]),
                (rnd_reads, rnd_haps, rnd_pairs),
                (g_reads, g_haps, diag)]
@@ -334,7 +341,7 @@ def main() -> int:
         for k, (reads, haps, pairs) in enumerate(
                 pp_sets + [pair_edge_set(6, (1, 33, 151, 700), (long_len,))]):
             staged = ph.stage_pairs(*normalize(reads, haps), pairs, ctx, dev)
-            e = compare_pairhmm(staged, kernels[name], pp_warps)
+            e = compare_pairhmm(staged, kernels[name], pp_layouts)
             if e:
                 raise AssertionError(f"{name} kernel != plain (set {k}): {e}")
             err[name] = max(err[name], e)
@@ -342,12 +349,21 @@ def main() -> int:
                 "shared" if ph.banded_carry_in_shared(
                     len(pairs), staged[3].shape[1], w, staged[0].dtype, dev)
                 else "global" for w in pp_warps[1:]}))
-            if ctx is CTX_F32 and k < 2:
-                e = compare_pairhmm(staged, ph.pairhmm_plane_f32)
+            if ctx is CTX_F32:
+                e = compare_pairhmm(staged, ph.pairhmm_plane_f32,
+                                    plane_layouts)
                 if e:
-                    raise AssertionError(f"pairhmm_plane_f32 kernel != plain: "
-                                         f"{e}")
+                    raise AssertionError(f"pairhmm_plane_f32 kernel != plain "
+                                         f"(set {k}): {e}")
                 err["pairhmm_plane_f32"] = max(err["pairhmm_plane_f32"], e)
+                pp_placed.append(("pairhmm_plane_f32", len(pairs),
+                                  staged[3].shape[1], {
+                    "shared" if ph.plane_carry_in_shared(
+                        len(pairs), staged[3].shape[1], kw["warps_per_pair"],
+                        kw["rows_per_lane"], dev)
+                    else "global" for kw in plane_layouts[1:]}))
+    for name in ("pairhmm_banded_f32", "pairhmm_banded_f64",
+                 "pairhmm_plane_f32"):
         places = set().union(*(p for n, *_, p in pp_placed if n == name))
         if places != {"shared", "global"}:
             raise AssertionError(f"{name}: the carry row did not take both "
@@ -407,12 +423,14 @@ def main() -> int:
         f"x 3 modes (traceback, samples, best score) on both sets at the "
         f"same W, every output equal (carry row of the 1,024 pairs at W = "
         f"1..32 by mode: {plane_placed}; of the 2,048: global); PairHMM "
-        f"plane f32 on "
-        f"{len(kat)} KAT + {len(rnd_pairs)} random ragged pairs: equal; "
-        f"PairHMM banded f32 and f64 on those, the {len(golden)} golden rows "
-        f"and reads of 1-700 bp against a hap of 30 kb (f32) or 16 kb (f64) "
-        f"at the wrapper's W and W = 1..{ph.BANDED_WARPS_MAX}: equal; carry "
-        f"rows (kernel, pairs, hap columns, placement) {pp_placed}; "
+        f"banded f32 and f64 on {len(kat)} KAT pairs, {len(rnd_pairs)} "
+        f"random ragged pairs, the {len(golden)} golden rows and reads of "
+        f"1-700 bp against a hap of 30 kb (f32) or 16 kb (f64) at the "
+        f"wrapper's W and W = 1..{ph.BANDED_WARPS_MAX}, and PairHMM plane f32 "
+        f"on the f32 sets at the wrapper's (R, W) and R = "
+        f"{', '.join(map(str, ph.PLANE_ROWS_PER_LANE))} x W = 1.."
+        f"{ph.BANDED_WARPS_MAX}: equal; carry rows (kernel, pairs, hap "
+        f"columns, placement) {pp_placed}; "
         f"shared on {len(sh_reads)} reads of 50-160 bp x "
         f"{len(sh_haps)} haps (positions "
         f"{compute_haplotype_similarities(sh_haps)[0].tolist()}) at the "
@@ -861,23 +879,71 @@ def main() -> int:
                 f"row in {carry} "
                 f"memory; equal to plain; card {card}")
 
-    # the plane kernel over the region's product
-    a = a32_big
-    cells = int((a[2][a[6]].long() * a[4][a[7]].long()).sum())
-    k_ms = cuda_ms(lambda: ph.pairhmm_plane_f32(*a), 5)
-    p_ms = cuda_ms(lambda: ph.forward_plain(*a), 1)
-    e = compare_pairhmm(a, ph.pairhmm_plane_f32)
-    if e:
-        raise AssertionError(f"pairhmm_plane_f32 != plain at the region "
-                             f"shape: {e}")
-    ms["pairhmm_plane_f32"], plain_ms["pairhmm_plane_f32"] = k_ms, p_ms
-    bounds["pairhmm_plane_f32"] = bound(cells * FLOPS_PER_CELL, "f32",
-                                        nbytes(*a) + len(a[6]) * 4)
-    log(f"    pairhmm_plane_f32 {len(a[6])} pairs 151x420: kernel {k_ms:.3f} "
-        f"ms = {cells / k_ms / 1e6:.2f} GCUPS; plain torch {p_ms:.3f} ms = "
-        f"{cells / p_ms / 1e6:.2f} GCUPS; bound "
-        f"{bounds['pairhmm_plane_f32'][0]:.4f} ms "
-        f"({bounds['pairhmm_plane_f32'][1]}); equal; card {card}")
+    # the plane kernel: at the wrapper's (R, W) against the plain version
+    # and beside the banded f32 kernel on the same staged pairs (both timed
+    # by testing.queued_ms) - the region's 6,144 pairs, which the plane path
+    # runs, a 32 x 12 region's 384, and 24 reads of 250 bp against a hap of
+    # 5.6 kb - then the sweep over every R and W up to the bands, each
+    # bit-equal to plain
+    regs = _build.kernel_resources("pairhmm_plane")
+    if len(regs) != 2 * len(ph.PLANE_ROWS_PER_LANE) or any(
+            r.get("spill_stores", 0) or r.get("spill_loads", 0) for r in regs):
+        raise AssertionError(f"the plane PairHMM instances spill or are "
+                             f"missing: {regs}")
+    regs = {tuple(map(int, re.search(r"ILi(\d)ELb(\d)E", r["entry"]).groups())):
+            (r["registers"], r.get("spill_stores"), r.get("spill_loads"))
+            for r in regs}
+    log(f"    pairhmm_plane registers and spills by (R, carry row in shared "
+        f"memory): {dict(sorted(regs.items()))}; at most "
+        f"{ph.BANDED_WARPS_MAX} warps a block")
+    l_reads, l_haps, l_pairs = pair_edge_set(8, (250,) * 24, (5600,))
+    a250 = ph.stage_pairs(*normalize(l_reads, l_haps), l_pairs, CTX_F32, dev)
+    for label, a in (("151x420", a32_big), ("151x420", a32),
+                     ("250x5600", a250)):
+        n_pairs, rows = len(a[6]), a[0].shape[-1]
+        cells = int((a[2][a[6]].long() * a[4][a[7]].long()).sum())
+        b_ms, b_by = bound(cells * FLOPS_PER_CELL, "f32",
+                           nbytes(*a) + n_pairs * 4)
+        chosen = ph.plane_layout(n_pairs, rows, sms)
+        if n_pairs == 24:
+            want, p_text = ph.forward_plain(*a), "not timed at this shape"
+        else:
+            want, p_ms = timed_calls(lambda: ph.forward_plain(*a))
+            p_text = f"{p_ms:.3f} ms = {cells / p_ms / 1e6:.2f} GCUPS"
+        bw = ph.pair_warps(n_pairs, (rows - 2) // 32, sms)
+        banded_ms = queued_ms(lambda: ph.pairhmm_banded_f32(*a), 5)
+        log(f"    pairhmm_plane_f32 {n_pairs} pairs {label} (bands of 64 / "
+            f"128 rows: {ph.plane_bands(rows, 2)} / {ph.plane_bands(rows, 4)})"
+            f": plain torch {p_text}; the banded f32 kernel (W = {bw}) "
+            f"{banded_ms:.4f} ms = {cells / banded_ms / 1e6:.2f} GCUPS; bound "
+            f"{b_ms:.4f} ms ({b_by}); card {card}")
+        for r, w in [chosen] + [(r, w) for r in ph.PLANE_ROWS_PER_LANE
+                                for w in range(1, min(ph.plane_bands(rows, r),
+                                                      ph.BANDED_WARPS_MAX) + 1)
+                                if (r, w) != chosen]:
+            def run():
+                return ph.pairhmm_plane_f32(*a, warps_per_pair=w,
+                                            rows_per_lane=r)
+            k_ms = queued_ms(run, 5)
+            got = run()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                e = float((got.double() - want.double()).abs().max())
+                raise AssertionError(f"pairhmm_plane_f32 R={r} W={w} != plain "
+                                     f"at {n_pairs} pairs {label}: {e}")
+            if (r, w) == chosen and n_pairs == 6144:
+                ms["pairhmm_plane_f32"], plain_ms["pairhmm_plane_f32"] = (
+                    k_ms, p_ms)
+                bounds["pairhmm_plane_f32"] = (b_ms, b_by)
+            carry = ("shared" if ph.plane_carry_in_shared(
+                n_pairs, a[3].shape[1], w, r, dev) else "global")
+            log(f"      R={r} W={w}{' (chosen)' if (r, w) == chosen else ''}: "
+                f"kernel {k_ms:.4f} ms = {cells / k_ms / 1e6:.2f} GCUPS; bound "
+                f"share {b_ms / k_ms:.3f}; {banded_ms / k_ms:.3f}x the banded "
+                f"kernel's speed; {n_pairs} blocks of {w} warps, "
+                f"{n_pairs * w / sms:.1f} warps an SM over the launch; carry "
+                f"row in {carry} memory; equal to plain; card {card}")
+    del a250
 
     # the shared kernel at the region shape: the wrapper's W against the
     # plain version, then the sweep over every W up to the read's bands,

@@ -33,10 +33,11 @@ BUILD_DIR = _PKG.parent / "build" / "mgl_tpu_torch"
 # at 24 (768 threads) ptxas keeps a lane's state in registers without
 # spills, where 32 warps held it to 64 registers and spilled.
 SHARED_MAX_WARPS = 24
-# The per-pair PairHMM kernel's most warps a block, its __launch_bounds__:
-# 16 (512 threads) leaves a lane 128 registers, room for the double
-# instance's planes and state without spills, and runs a read of up to
-# 512 bases (16 bands) in one round.
+# The per-pair and plane PairHMM kernels' most warps a block, their
+# __launch_bounds__: 16 (512 threads) leaves a lane 128 registers, room for
+# the double instance's planes and state, and the plane kernel's four rows
+# a lane, without spills, and runs a read of up to 512 bases (16 bands of
+# a row a lane) in one round.
 BANDED_MAX_WARPS = 16
 # --fmad=false: no contraction of a*b+c, so the PairHMM kernels round like
 # torch's elementwise ops; no -ftz, so f32 denormals are kept.
@@ -64,7 +65,8 @@ _ENTRIES = {
     "mgl_pairhmm_shared_carry_in_shared": [_I] * 3,
     "mgl_sw_plane": [_P] * 4 + [_I] * 12 + [_P] * 4,
     "mgl_sw_plane_carry_in_shared": [_I] * 4,
-    "mgl_pairhmm_plane_f32": [_P] * 8 + [_I] * 3 + [_P] * 2,
+    "mgl_pairhmm_plane_f32": [_P] * 8 + [_I] * 6 + [_P] * 3,
+    "mgl_pairhmm_plane_carry_in_shared": [_I] * 4,
 }
 _I64 = ctypes.c_int64
 _HOST_ENTRIES = {

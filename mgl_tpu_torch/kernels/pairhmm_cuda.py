@@ -38,14 +38,17 @@ from mgl_tpu_torch.tables import (BASE_ENC, CTX_F32, CTX_F64, QualityContext,
                                   context_tables)
 
 _TRACKS = ("q", "i", "d", "c", "bases")
-# 9 floats a matrix row (M, X, Y of three diagonals) within the 227 KB of
-# shared memory a block may take
-PLANE_ROWS_MAX = 232_448 // (9 * 4)
 # the pipelined kernels' warps a block (a read for the shared kernel, a
-# pair for the banded ones): 1 to the cap, aiming at WARPS_PER_SM warps on
-# each SM that holds a block
+# pair for the banded and plane ones): 1 to the cap, aiming at
+# WARPS_PER_SM warps on each SM that holds a block
 SHARED_WARPS_MAX = _build.SHARED_MAX_WARPS
 BANDED_WARPS_MAX = _build.BANDED_MAX_WARPS
+# the plane kernel's read rows a lane (R, a template parameter of
+# csrc/pairhmm_plane.cu): a band is 32R rows
+PLANE_ROWS_PER_LANE = (2, 4)
+# the longest read (in rows) that plane_layout gives R = 2
+PLANE_R2_ROWS = 256
+_PLANE = "mgl_pairhmm_plane_f32"
 
 
 def _check(name, x, dtype, shape, device):
@@ -57,13 +60,15 @@ def _check(name, x, dtype, shape, device):
 
 
 def _forward(entry: str, dtype: torch.dtype, planes, rchar, rslen, haps,
-             haplen, y_init, ridx, hidx, pipelined: bool = True,
-             warps_per_pair: int | None = None) -> torch.Tensor:
+             haplen, y_init, ridx, hidx, warps_per_pair: int | None = None,
+             rows_per_lane: int | None = None) -> torch.Tensor:
     """Check the per-pair kernels' arguments and launch ``entry``; on CPU
-    tensors run the plain forward.  ``pipelined`` (the banded kernels): one
-    block a pair of ``warps_per_pair`` warps (by default
-    :func:`pair_warps`), the bands handing one (U, W) carry row down, in
-    shared or global memory as :func:`banded_carry_in_shared` says."""
+    tensors run the plain forward.  One block a pair of ``warps_per_pair``
+    warps, its bands handing one (U, W) carry row down, in shared or
+    global memory as the launcher's placement query says.  The banded
+    kernels hold a read row a lane and take W by :func:`pair_warps`; the
+    plane kernel holds ``rows_per_lane`` rows a lane, and
+    :func:`plane_layout` fills in whichever of R and W is not forced."""
     n_r, n_p, rows = planes.shape
     n_h, hap_cols = haps.shape
     B = ridx.shape[0]
@@ -89,29 +94,37 @@ def _forward(entry: str, dtype: torch.dtype, planes, rchar, rslen, haps,
     args = [x.contiguous() for x in (planes, rchar, rslen, haps, haplen,
                                      y_init, ridx, hidx)]
     out = torch.empty((B,), dtype=dtype, device=dev)
-    extra = []
-    if pipelined:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the placement query's last argument: R for the plane kernel, whether
+    # the banded kernel runs in double
+    if entry == _PLANE:
+        rows_per_lane, w = plane_layout(B, rows, sms, rows_per_lane)
+        n_bands = plane_bands(rows, rows_per_lane)
+        query, variant = "mgl_pairhmm_plane_carry_in_shared", rows_per_lane
+        layout = [rows_per_lane]
+    else:
         n_bands = (rows - 2) // BAND
-        if n_bands * (hap_cols + 1) >= 2 ** 31:
-            raise ValueError(f"the banded kernel counts a pair's progress in "
-                             f"int32: {n_bands} bands x {hap_cols} columns "
-                             f"is too large")
-        if warps_per_pair is None:
-            warps_per_pair = pair_warps(
-                B, n_bands,
-                torch.cuda.get_device_properties(dev).multi_processor_count)
-        in_shared = banded_carry_in_shared(B, hap_cols, warps_per_pair,
-                                           dtype, dev)
-        # else the (U, W) row that crosses bands lies in global memory, one
-        # (U, W) pair a hap column, never read unwritten
-        carry = (None if in_shared else
-                 torch.empty((B, hap_cols, 2), dtype=dtype, device=dev))
-        extra = [warps_per_pair, int(in_shared),
-                 None if carry is None else carry.data_ptr()]
+        w = pair_warps(B, n_bands, sms)
+        query = "mgl_pairhmm_banded_carry_in_shared"
+        variant = int(dtype == torch.float64)
+        layout = []
+    if warps_per_pair is None:
+        warps_per_pair = w
+    if n_bands * (hap_cols + 1) >= 2 ** 31:
+        raise ValueError(f"the PairHMM kernel counts a pair's progress in "
+                         f"int32: {n_bands} bands x {hap_cols} columns is "
+                         f"too large")
+    in_shared = _row_in_shared(dev, query, B, hap_cols, warps_per_pair,
+                               variant)
+    # else the (U, W) row that crosses bands lies in global memory, one
+    # (U, W) pair a hap column, never read unwritten
+    carry = (None if in_shared else
+             torch.empty((B, hap_cols, 2), dtype=dtype, device=dev))
     lib = _build.load_library()
     with torch.cuda.device(dev):
         code = getattr(lib, entry)(
-            *(a.data_ptr() for a in args), B, rows, hap_cols, *extra,
+            *(a.data_ptr() for a in args), B, rows, hap_cols, warps_per_pair,
+            *layout, int(in_shared), None if carry is None else carry.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(lib, code, entry)
     return out
@@ -164,24 +177,70 @@ def pairhmm_banded_f64(planes, rchar, rslen, haps, haplen, y_init, ridx,
 
 
 def pairhmm_plane_f32(planes, rchar, rslen, haps, haplen, y_init, ridx,
-                      hidx) -> torch.Tensor:
+                      hidx, warps_per_pair: int | None = None,
+                      rows_per_lane: int | None = None) -> torch.Tensor:
     """(B,) float32 forward scores, 2^120-scaled, by the plane kernel
     (``csrc/pairhmm_plane.cu``, the counterpart of
     ``pairhmm_pallas.py:_pairhmm_kernel``); arguments as
     :func:`pairhmm_banded_f32`.  Its plain version is
     ``ops.pairhmm.forward_plain``, the full-height recurrence, which is
-    the banded kernel's plain version too.  Planes of up to
-    ``PLANE_ROWS_MAX`` rows (reads up to 6,432 bases): the block keeps
-    three diagonals of M, X and Y a row in shared memory."""
-    rows = planes.shape[-1]
-    if planes.device.type == "cuda" and rows > PLANE_ROWS_MAX:
-        raise ValueError(f"the plane PairHMM kernel takes up to "
-                         f"{PLANE_ROWS_MAX} plane rows, got {rows}")
-    out = _forward("mgl_pairhmm_plane_f32", torch.float32, planes, rchar,
-                   rslen, haps, haplen, y_init, ridx, hidx, pipelined=False)
+    the banded kernel's plain version too.
+
+    One block a pair: bands of 32R read rows, R = ``rows_per_lane`` (2 or
+    4) a lane, run side by side on ``warps_per_pair`` warps (1 to
+    BANDED_WARPS_MAX), pipelined through one carry row, which lies in
+    shared memory where that costs the launch no resident blocks, else in
+    global memory (:func:`plane_carry_in_shared`).  By default
+    :func:`plane_layout` picks R and W; forcing either gives the same
+    bits.  No read length is refused but one whose bands x hap columns
+    overflow the int32 progress counter."""
+    w = _checked_warps("warps_per_pair", warps_per_pair, BANDED_WARPS_MAX)
+    if rows_per_lane is not None and rows_per_lane not in PLANE_ROWS_PER_LANE:
+        raise ValueError(f"rows_per_lane: one of {PLANE_ROWS_PER_LANE}, got "
+                         f"{rows_per_lane!r}")
+    out = _forward(_PLANE, torch.float32, planes, rchar, rslen, haps, haplen,
+                   y_init, ridx, hidx, warps_per_pair=w,
+                   rows_per_lane=rows_per_lane)
     if planes.device.type == "cuda":
         pairhmm_plane_f32.launches += 1
     return out
+
+
+def plane_bands(rows: int, rows_per_lane: int) -> int:
+    """Bands of the plane kernel over planes of ``rows`` (32k + 2) rows at
+    R = ``rows_per_lane``: ceil((rows - 2) / 32R)."""
+    return -(-(rows - 2) // (BAND * rows_per_lane))
+
+
+def plane_layout(n_pairs: int, rows: int, sm_count: int,
+                 rows_per_lane: int | None = None) -> tuple[int, int]:
+    """(R, W) of the plane kernel for n_pairs pairs over planes of ``rows``
+    rows on a card of ``sm_count`` SMs.  R, unless forced: 2 for reads of
+    up to PLANE_R2_ROWS rows, 4 beyond.  An R = 4 step takes 1.7-1.9x an
+    R = 2 step for twice the cells, but its bands add 64 steps of ramp
+    and up to 127 rows past the read, and with few pairs its half as many
+    bands fill fewer warps: R = 2 was 12-45% faster at 100-151 bp and at
+    250 bp on 24 and 384 pairs, and within 1.2% of R = 4 at 250 bp on
+    6,144; R = 4 was 18-24% faster at 1,000 and 6,000 bp (an H100 at
+    700 W, the R x W sweeps of ``time_pairhmm_banded --sweep``, PERF.md
+    section 6).  W by
+    :func:`_pipeline_warps` over the bands of that R, at most
+    BANDED_WARPS_MAX."""
+    if rows_per_lane is None:
+        rows_per_lane = 2 if rows - 2 <= PLANE_R2_ROWS else 4
+    return rows_per_lane, _pipeline_warps(
+        n_pairs, plane_bands(rows, rows_per_lane), sm_count,
+        BANDED_WARPS_MAX)
+
+
+def plane_carry_in_shared(n_pairs: int, hap_cols: int, warps_per_pair: int,
+                          rows_per_lane: int, device) -> bool:
+    """Whether :func:`pairhmm_plane_f32` keeps the carry row of n_pairs
+    pairs against haps of ``hap_cols`` columns at (R, W) = (rows_per_lane,
+    warps_per_pair) in shared memory on ``device`` (a CUDA device): the
+    launcher's choice, asked once a shape and device."""
+    return _row_in_shared(device, "mgl_pairhmm_plane_carry_in_shared",
+                          n_pairs, hap_cols, warps_per_pair, rows_per_lane)
 
 
 def _pipeline_warps(n_blocks: int, n_bands: int, sm_count: int,

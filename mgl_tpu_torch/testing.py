@@ -188,6 +188,25 @@ def pair_edge_set(seed: int, read_lens, hap_lens
     return reads, haps, pairs
 
 
+def long_read_pairs(seed: int, read_lens, hap_len: int
+                    ) -> tuple[list[dict], list[np.ndarray], list[tuple]]:
+    """Reads of ``read_lens`` bases (each under ``hap_len``), slices of a
+    random hap at Q45, against that hap and a copy with one SNP in its
+    middle, all pairs: long reads whose f32 scores stay far above 0,
+    where reads at mixed qualities underflow."""
+    rng = np.random.default_rng(seed)
+    base = rng.choice(ACGT, hap_len)
+    haps = [base, snp(base, hap_len // 2)]
+    reads = []
+    for n in read_lens:
+        st = int(rng.integers(0, hap_len - n + 1))
+        q = np.full(n, 45, np.uint8)
+        reads.append(dict(bases=base[st:st + n].copy(), q=q, i=q, d=q,
+                          c=np.full(n, 10, np.uint8)))
+    pairs = [(r, h) for r in range(len(reads)) for h in range(2)]
+    return reads, haps, pairs
+
+
 def long_hap_set(seed: int, n_reads: int = 300, n_haps: int = 24,
                  hap_len: int = 1000, read_len: int = 100
                  ) -> tuple[list[dict], list[np.ndarray]]:

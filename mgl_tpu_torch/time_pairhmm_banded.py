@@ -1,6 +1,8 @@
-"""Device time of the per-pair banded PairHMM kernels
-(``kernels.pairhmm_cuda.pairhmm_banded_f64``, the rescue tier, and
-``pairhmm_banded_f32``, the product-mode pass and ``pair_likelihoods``).
+"""Device time of the per-pair PairHMM kernels
+(``kernels.pairhmm_cuda.pairhmm_banded_f64``, the rescue tier,
+``pairhmm_banded_f32``, the product-mode pass and ``pair_likelihoods``,
+and ``pairhmm_plane_f32``, the plane path's second design of the f32
+forward on the same staged arguments).
 
     python -m mgl_tpu_torch.time_pairhmm_banded [--label NAME] [--sweep]
                                                 [--out FILE]
@@ -10,7 +12,11 @@ seed 7: every 16th of 512 reads of 151 bp x 12 haps of 420 bp, 384
 pairs), the 225 golden rows of ``tests/golden/pairhmm_golden.jsonl``, and
 24 reads of 250 bp against one hap of 5.6 kb.  f32: 384 pairs (a 32 x 12
 region) and 6,144 pairs (a 512 x 12 region's product) of 151 x 420, and
-128 x 4 at 60 x 100.  Each wrapper call is timed by CUDA events as
+128 x 4 at 60 x 100.  Plane f32: 384 and 6,144 pairs of 151 x 420, 24
+reads of 250 bp against a hap of 5.6 kb, and the shapes that set its
+rows-a-lane rule: 6,144 pairs of 100 x 300, 384 and 6,144 of 250 x 420,
+512 of 1,000 x 1,100 and 4 of 6,000 x 9,000 (Q45 reads, the longest the
+first plane kernel took).  Each wrapper call is timed by CUDA events as
 ``time_pairhmm_shared`` times it: after a warm-up call, the mean of 20, of
 5 and of 2 calls, each by ``testing.queued_ms`` (enqueued behind a spin of
 the card, so the events measure device time alone); ``ms`` is the median
@@ -20,7 +26,8 @@ the carry row's placement.  Each row carries a checksum of the kernel's
 output and the kernel's bound (11 flops a cell over the card's peak).
 The script uses only the wrapper arguments of the first port of the
 kernels, so it runs on an older tree too (with this tree's ``testing.py``
-beside it; no sweep there).  The last line is the report as one JSON
+beside it; no sweep there, and no plane R where the plane kernel takes
+none).  The last line is the report as one JSON
 object; ``--out`` writes it to a file too.  Needs one NVIDIA GPU; imports
 no jax.
 """
@@ -40,7 +47,8 @@ from mgl_tpu_torch.kernels import pairhmm_cuda as ph
 from mgl_tpu_torch.ops.pairhmm import normalize
 from mgl_tpu_torch.tables import CTX_F32, CTX_F64
 from mgl_tpu_torch.testing import (engine_region, golden_read, load_golden,
-                                   pair_edge_set, queued_ms, u8)
+                                   long_read_pairs, pair_edge_set, queued_ms,
+                                   u8)
 
 CALLS = (20, 5, 2)
 # H100 SXM peaks outside the tensor cores (NVIDIA's data sheet, 700 W)
@@ -64,14 +72,35 @@ def product(n_reads: int, n_haps: int, rdlen: int, haplen: int):
     return reads, haps, [(r, h) for r in range(n_reads) for h in range(n_haps)]
 
 
-# (name, context, pairs)
-SHAPES = (("f64_384_151x420_rescue", CTX_F64, rescue_tail),
-          ("f64_225_golden", CTX_F64, golden_rows),
-          ("f64_24_250x5600", CTX_F64,
-           lambda: pair_edge_set(8, (250,) * 24, (5600,))),
-          ("f32_384_151x420", CTX_F32, lambda: product(32, 12, 151, 420)),
-          ("f32_6144_151x420", CTX_F32, lambda: product(512, 12, 151, 420)),
-          ("f32_128x4_60x100", CTX_F32, lambda: product(128, 4, 60, 100)))
+def long_hap():
+    return pair_edge_set(8, (250,) * 24, (5600,))
+
+
+# (name, kernel, pairs); contexts: the kernel's dtype
+SHAPES = (("f64_384_151x420_rescue", "pairhmm_banded_f64", rescue_tail),
+          ("f64_225_golden", "pairhmm_banded_f64", golden_rows),
+          ("f64_24_250x5600", "pairhmm_banded_f64", long_hap),
+          ("f32_384_151x420", "pairhmm_banded_f32",
+           lambda: product(32, 12, 151, 420)),
+          ("f32_6144_151x420", "pairhmm_banded_f32",
+           lambda: product(512, 12, 151, 420)),
+          ("f32_128x4_60x100", "pairhmm_banded_f32",
+           lambda: product(128, 4, 60, 100)),
+          ("plane_f32_384_151x420", "pairhmm_plane_f32",
+           lambda: product(32, 12, 151, 420)),
+          ("plane_f32_6144_151x420", "pairhmm_plane_f32",
+           lambda: product(512, 12, 151, 420)),
+          ("plane_f32_24_250x5600", "pairhmm_plane_f32", long_hap),
+          ("plane_f32_6144_100x300", "pairhmm_plane_f32",
+           lambda: product(512, 12, 100, 300)),
+          ("plane_f32_384_250x420", "pairhmm_plane_f32",
+           lambda: product(32, 12, 250, 420)),
+          ("plane_f32_6144_250x420", "pairhmm_plane_f32",
+           lambda: product(512, 12, 250, 420)),
+          ("plane_f32_512_1000x1100", "pairhmm_plane_f32",
+           lambda: product(128, 4, 1000, 1100)),
+          ("plane_f32_4_6000x9000", "pairhmm_plane_f32",
+           lambda: long_read_pairs(9, (6000, 5990), 9000)))
 
 
 def timed(call) -> tuple[float, list[float]]:
@@ -100,6 +129,8 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     forced = "warps_per_pair" in inspect.signature(
         ph.pairhmm_banded_f64).parameters
+    plane_r = "rows_per_lane" in inspect.signature(
+        ph.pairhmm_plane_f32).parameters
     rows = []
 
     def emit(**row):
@@ -107,32 +138,49 @@ def main() -> int:
         print(json.dumps(row), flush=True)
         rows.append(row)
 
-    for name, ctx, make in SHAPES:
+    for name, kernel, make in SHAPES:
         reads, haps, pairs = make()
         reads, haps = normalize(reads, haps)
+        kern = getattr(ph, kernel)
+        ctx = CTX_F64 if kernel.endswith("f64") else CTX_F32
         a = ph.stage_pairs(reads, haps, pairs, ctx, dev)
-        kern = ph.pairhmm_banded_f64 if ctx is CTX_F64 else ph.pairhmm_banded_f32
-        n_bands = (a[0].shape[-1] - 2) // 32
+        plane = kernel == "pairhmm_plane_f32"
         cells = int((a[2][a[6]].long() * a[4][a[7]].long()).sum())
         bound_ms = cells * FLOPS_PER_CELL / PEAK_FLOPS[a[0].dtype] * 1e3
-        chosen = ph.pair_warps(len(pairs), n_bands, sms) if forced else None
+        # (R, W) layouts to time: the wrapper's, then the sweep's
+        if plane and plane_r:
+            chosen = ph.plane_layout(len(pairs), a[0].shape[-1], sms)
+            sweep = [(r, w) for r in ph.PLANE_ROWS_PER_LANE for w in range(
+                1, min(ph.plane_bands(a[0].shape[-1], r),
+                       ph.BANDED_WARPS_MAX) + 1)]
+        elif forced and not plane:
+            n_bands = (a[0].shape[-1] - 2) // 32
+            chosen = (1, ph.pair_warps(len(pairs), n_bands, sms))
+            sweep = [(1, w) for w in range(
+                1, min(n_bands, ph.BANDED_WARPS_MAX) + 1)]
+        else:
+            chosen, sweep = (None, None), []
         ms, runs = timed(lambda: kern(*a))
-        emit(shape=name, pairs=len(pairs), bands=n_bands, warps=chosen,
-             ms=ms, ms_runs=runs, bound_ms=bound_ms, share=bound_ms / ms,
+        emit(shape=name, kernel=kernel, pairs=len(pairs),
+             rows_per_lane=chosen[0], warps=chosen[1], ms=ms, ms_runs=runs,
+             bound_ms=bound_ms, share=bound_ms / ms,
              out_sha=checksum(kern(*a)))
-        if opts.sweep and forced:
-            for w in range(1, min(n_bands, ph.BANDED_WARPS_MAX) + 1):
-                ms, runs = timed(lambda: kern(*a, warps_per_pair=w))
-                emit(shape=name, pairs=len(pairs), bands=n_bands, warps=w,
-                     ms=ms, ms_runs=runs, share=bound_ms / ms,
-                     out_sha=checksum(kern(*a, warps_per_pair=w)),
-                     carry=("shared" if ph.banded_carry_in_shared(
-                         len(pairs), a[3].shape[1], w, a[0].dtype, dev)
-                         else "global"))
+        for r, w in sweep if opts.sweep else []:
+            kw = dict(warps_per_pair=w, **({"rows_per_lane": r} if plane
+                                           else {}))
+            ms, runs = timed(lambda: kern(*a, **kw))
+            in_shared = (ph.plane_carry_in_shared(
+                len(pairs), a[3].shape[1], w, r, dev) if plane else
+                ph.banded_carry_in_shared(len(pairs), a[3].shape[1], w,
+                                          a[0].dtype, dev))
+            emit(shape=name, kernel=kernel, pairs=len(pairs),
+                 rows_per_lane=r, warps=w, ms=ms, ms_runs=runs,
+                 share=bound_ms / ms, out_sha=checksum(kern(*a, **kw)),
+                 carry="shared" if in_shared else "global")
         del a
         torch.cuda.empty_cache()
     report = json.dumps({"label": opts.label, "card": card,
-                         "resources": _build.kernel_resources("pairhmm_banded"),
+                         "resources": _build.kernel_resources("pairhmm_"),
                          "rows": rows})
     if opts.out:
         with open(opts.out, "w") as f:
