@@ -4,14 +4,16 @@
     python3 chip_smoke.py        # from the root of a checkout, one card
 
 The quickest proof that the port still starts on the card.  It builds the
-seven CUDA kernels (five sources) from ``mgl_tpu_torch/csrc``, one nvcc
+eight CUDA kernels (six sources) from ``mgl_tpu_torch/csrc``, one nvcc
 each, all started together, and the host CIGAR decoder from
 ``csrc/host``, holds each kernel against its plain torch version on the
 card, runs the goldens through both GATK entry points
 (``SmithWatermanAligner.align_batch``,
-``PairHmmEngine.compute_likelihoods``), then drives the main path at a
-realistic size - the aligner, the engine in shared and product mode, and
-``PairHmmEngine.compute_likelihoods_stream`` - and times it; then the
+``PairHmmEngine.compute_likelihoods``, also with ``use_double`` and
+``fast_path``), then drives the main path at a realistic size - the
+aligner, the engine in shared and product mode, and
+``PairHmmEngine.compute_likelihoods_stream`` - and times it, then the
+engine's two modes over the same regions; then the
 plane path, the second design of both recurrences
 (``sw_cuda.align_batch``, ``sw_cuda.sw_plane_scores``,
 ``pairhmm_cuda.forward_scores_plane``), against the goldens and the
@@ -23,18 +25,26 @@ banded kernels.  Phases:
    pipelined kernels - banded and plane SW, per-pair, plane and shared
    PairHMM - at every warps-a-block count W, the plane PairHMM kernel at
    every W and rows a lane R, with the carry row in shared and in global
-   memory);
+   memory; the seed-extend kernel on the golden rows, a region's product
+   and its edge pairs);
 3. all SW golden cases, CIGAR and offset exact;
-4. PairHMM known answers and golden rows through the cascade;
+4. PairHMM known answers and golden rows through the cascade, and
+   through ``use_double`` and ``fast_path``;
 5. the main path at a realistic size, with launch counts and times;
 6. the stream over the same regions, bit-equal to sequential calls;
+6b. the engine's ``use_double`` and ``fast_path`` modes over the same
+   regions: launch counts, bit-equal to the engine on the CPU on samples,
+   the stream bit-equal to sequential calls, warm pairs/s; and
+   ``fast_path`` on a region with no hit, through the shared kernel;
 7. the plane path: SW goldens, the 150 bp batch and PairHMM regions,
    bit-equal to the banded kernels, with launch counts;
 8. kernel and plain times at the main path's shapes, with bounds, and
    the pipelined kernels' W sweeps (registers and spills, warps an SM,
    carry placement); the plane SW kernel also into preallocated outputs,
    apart from its wrapper's zero fill; the plane PairHMM kernel beside
-   the banded f32 kernel on the same pairs, with its R x W sweep.
+   the banded f32 kernel on the same pairs, with its R x W sweep; the
+   seed-extend kernel and the f64 per-pair kernel at a region's 6,144
+   pairs.
 
 Any failed phase raises and the script exits non-zero.  The last line is
 one JSON object naming the device; the line before it lists the kernels
@@ -68,6 +78,14 @@ PEAK = {"f32": 67e12, "f64": 34e12, "int32": 132 * 64 * 1.98e9,
 FLOPS_PER_CELL = 11
 SW_OPS_PER_CELL = {True: 30, False: 12}
 SW_SCORE_OPS_PER_CELL = 11
+# the seed-extend scan, counted as what the function needs, not what
+# seed_extend.cu issues: with each base a one-hot mask (N all ones), made
+# once a base of each distinct read and hap (a shift and the N select),
+# a read position compared at an offset is an AND and a test for zero,
+# counted up to each offset's second mismatch, where the scan can stop;
+# and one float32 add a valid offset into the pair's sum
+SEED_OPS_PER_BASE = 2
+SEED_MASK_OPS_PER_BASE = 2
 
 
 def log(msg: str) -> None:
@@ -154,6 +172,75 @@ def compare_pairhmm(args, kernel, layouts=({},)) -> float:
     return err
 
 
+def compare_seed_extend(args) -> float:
+    """The seed-extend kernel vs its plain version on the card: raises
+    unless bit-equal (NaN where plain has NaN); returns the largest
+    |difference| over the finite entries (0.0)."""
+    import torch
+
+    from mgl_tpu_torch.kernels.seed_extend_cuda import seed_extend_f32
+    from mgl_tpu_torch.ops.seed_extend import fast_scores_plain
+    from mgl_tpu_torch.testing import same_scores
+
+    got = seed_extend_f32(*args)
+    want = fast_scores_plain(*args)
+    torch.cuda.synchronize()
+    if not same_scores(got, want):
+        raise AssertionError(f"seed-extend kernel != plain on "
+                             f"{len(got)} pairs")
+    ok = torch.isfinite(want)
+    return float((got[ok].double() - want[ok].double()).abs().max())
+
+
+def seed_extend_work(args, chunk: int = 256) -> tuple[int, int]:
+    """(read positions, offsets) the seed-extend scan of these staged pairs
+    must compare and add: at each valid offset, the positions up to and
+    including its second mismatch (all of the read if it has fewer) -
+    what this run's data needs, for the bound."""
+    import torch
+
+    rbases, rslen, _, _, haps, haplen, ridx, hidx = args
+    R, H = rbases.shape[1], haps.shape[1]
+    pos = torch.arange(R, device=rbases.device)
+    total = offsets = 0
+    for b0 in range(0, len(ridx), chunk):
+        ri, hi = ridx[b0:b0 + chunk], hidx[b0:b0 + chunk]
+        rl, hl = rslen[ri].long(), haplen[hi].long()
+        offsets += int((hl - rl + 1).clamp(min=0).sum())
+        n_off = int((hl - rl).max()) + 1
+        if n_off < 1:
+            continue
+        hpad = torch.zeros((len(ri), H + R), dtype=torch.uint8,
+                           device=rbases.device)
+        hpad[:, :H] = haps[hi]
+        win = hpad.unfold(1, R, 1)[:, :n_off]            # (b, n_off, R)
+        rc = rbases[ri][:, None, :]
+        live = pos[None, None, :] < rl[:, None, None]
+        mm = (rc != win) & (rc != 78) & (win != 78) & live
+        seen = mm.cumsum(2) - mm.int()                   # mismatches before
+        valid = (torch.arange(n_off, device=rbases.device)[None, :]
+                 <= (hl - rl)[:, None])
+        total += int(((seen < 2) & live & valid[:, :, None]).sum())
+    return total, offsets
+
+
+def seed_extend_bound(args, n_pairs: int) -> tuple[float, str, int, int]:
+    """(ms, "operations" or "bytes", positions, offsets): the least time
+    of the seed-extend scan of these staged pairs - the int32 ops of its
+    compares and masks and the float32 adds of its sum (SEED_OPS_PER_BASE
+    and the counts of :func:`seed_extend_work`), against the staged
+    arguments read once and the scores written once."""
+    positions, offsets = seed_extend_work(args)
+    mask_bases = int(args[1].sum()) + int(args[5].sum())
+    t_ops = ((positions * SEED_OPS_PER_BASE
+              + mask_bases * SEED_MASK_OPS_PER_BASE) / PEAK["int32"]
+             + offsets / PEAK["f32"]) * 1e3
+    t_bytes = (nbytes(*args) + n_pairs * 4) / PEAK["bytes"] * 1e3
+    if t_ops >= t_bytes:
+        return t_ops, "operations", positions, offsets
+    return t_bytes, "bytes", positions, offsets
+
+
 def traceback_bytes(targets, queries) -> tuple[int, int]:
     """Bytes of the traceback words that come back to the host for a batch
     padded to its maxima: (plane layout, banded layout)."""
@@ -190,7 +277,9 @@ def main() -> int:
                                    SmithWatermanAligner, SWParameters)
     from mgl_tpu_torch.batch.bucketing import bucket_pairs
     from mgl_tpu_torch.kernels import pairhmm_cuda as ph
+    from mgl_tpu_torch.kernels import seed_extend_cuda as se
     from mgl_tpu_torch.kernels import sw_cuda
+    from mgl_tpu_torch.ops.seed_extend import fast_scores_plain, stage_fast
     from mgl_tpu_torch.ops.sw import EZ_KEYS, banded_layout, compute_score_max
     from mgl_tpu_torch.ops.pairhmm import (compute_haplotype_similarities,
                                            normalize, pair_likelihoods,
@@ -200,8 +289,9 @@ def main() -> int:
     from mgl_tpu_torch.testing import (ACGT, cuda_ms, engine_region,
                                        golden_groups, golden_read,
                                        load_golden, long_hap_set,
-                                       pair_edge_set, plane_outputs,
-                                       queued_ms,
+                                       no_hit_region, pair_edge_set,
+                                       plane_outputs,
+                                       queued_ms, seed_extend_edge_set,
                                        shared_on_and_off, snp,
                                        sw_pairs,
                                        sw_tensors, timed_calls,
@@ -213,7 +303,8 @@ def main() -> int:
                "pairhmm_shared_f32": ph.pairhmm_shared_f32,
                "sw_plane": sw_cuda.sw_plane,
                "sw_plane_scores": sw_cuda.sw_plane_scores,
-               "pairhmm_plane_f32": ph.pairhmm_plane_f32}
+               "pairhmm_plane_f32": ph.pairhmm_plane_f32,
+               "seed_extend_f32": se.seed_extend_f32}
 
     def drive(fn):
         """(fn(), launches of each kernel during it, host seconds): the
@@ -415,6 +506,18 @@ def main() -> int:
     if set().union(*(where for *_, where in placed)) != {"shared", "global"}:
         raise AssertionError(f"shared kernel: the carry row did not take "
                              f"both placements: {placed}")
+    # the seed-extend kernel: the golden rows, one region's full product,
+    # and the edge pairs (haplen < rslen, haplen == rslen, a one-base read,
+    # N in reads and haps, a 30 kb hap, a Q0 base whose one mismatch adds
+    # NaN)
+    region_n = normalize(*engine_region(100))
+    se_sets = [("golden rows", gn_reads, gn_haps, diag),
+               ("a 512 x 12 region", *region_n,
+                [(r, h) for r in range(512) for h in range(12)]),
+               ("edge pairs", *seed_extend_edge_set(3))]
+    for label, rs, hs, ps in se_sets:
+        err["seed_extend_f32"] = max(err["seed_extend_f32"], compare_seed_extend(
+            stage_fast(rs, hs, ps, dev)))
     log(f"[2 kernel==plain, tolerance 0 (bit for bit)] SW {len(targets)} "
         f"pairs 40-250 bp x 4 strategies: banded x 2 modes at the wrapper's "
         f"W and at W = {', '.join(map(str, sw_cuda.BANDED_WARPS))} warps a "
@@ -438,7 +541,9 @@ def main() -> int:
         f"{ph.SHARED_WARPS_MAX}, and {len(lg_reads)} reads of 60 bp x "
         f"{len(lg_haps)} haps of 1 kb at W = 1, 2, sharing on and off: "
         f"equal, and on == off; carry rows (set, reads, stream slots, "
-        f"placement) {placed}")
+        f"placement) {placed}; seed-extend on "
+        f"{', '.join(f'{lb} ({len(ps)} pairs)' for lb, _, _, ps in se_sets)}"
+        f": equal (NaN where plain has NaN)")
 
     # ---- phase 3: SW golden through the entry point -----------------------
     sw_rows = load_golden("sw_golden.jsonl")
@@ -481,10 +586,52 @@ def main() -> int:
     if decisions != len(golden) or not (g_err < 1e-5).all():
         raise AssertionError(f"PairHMM golden: decisions {decisions}, "
                              f"within 1e-5 {(g_err < 1e-5).sum()}")
+    # use_double: every pair in f64 alone, each pair its own call
+    eng_double = PairHmmEngine(use_double=True, device=dev)
+    d_kat = np.array([eng_double.compute_likelihoods([r], [h])[0, 0]
+                      for r, h in zip(kat_reads, kat_haps)])
+    d_kat_err = np.abs(d_kat - [c["expected_log10"] for c in kat])
+    d_gold = np.array([eng_double.compute_likelihoods([r], [h])[0, 0]
+                       for r, h in zip(g_reads, g_haps)])
+    d_gold_err = np.abs(d_gold - gwant)
+    if not ((d_kat_err < 1e-5).all() and (d_gold_err < 1e-5).all()):
+        raise AssertionError(f"use_double: KAT {(d_kat_err < 1e-5).sum()}/"
+                             f"{len(kat)}, golden {(d_gold_err < 1e-5).sum()}/"
+                             f"{len(golden)} within 1e-5")
+    # fast_path: the kernel's scores against the reference's
+    # compute_fast_prob (the golden ``fast``), then each golden pair through
+    # the engine: a hit takes log10(fs) - log10(2^120), the rest equal the
+    # exact engine
+    fs = se.fast_scores(gn_reads, gn_haps, diag, dev).cpu().numpy()
+    g_fast = np.array([float.fromhex(r["fast"]) for r in golden])
+    nz = g_fast != 0
+    fast_rel = np.abs(fs[nz] - g_fast[nz]) / np.abs(g_fast[nz])
+    if not ((fast_rel < 1e-6).all() and (np.abs(fs[~nz]) < 1e-30).all()):
+        raise AssertionError(f"seed-extend vs golden fast: "
+                             f"{(fast_rel < 1e-6).sum()}/{nz.sum()} within 1e-6")
+    eng_fast = PairHmmEngine(fast_path=True, device=dev)
+    hits = fs >= MIN_ACCEPTED
+    for k, (r, h) in enumerate(zip(g_reads, g_haps)):
+        got = eng_fast.compute_likelihoods([r], [h])[0, 0]
+        if hits[k]:       # within 1e-9 log10, as tests/test_pairhmm_jax.py
+            ok = abs(got - (np.log10(np.float64(fs[k]))
+                            - float(CTX_F32.log10_initial_constant))) < 1e-9
+        else:
+            ok = got == eng.compute_likelihoods([r], [h])[0, 0]
+        if not ok:
+            raise AssertionError(f"fast_path golden row {k} (hit {hits[k]}): "
+                                 f"{got}")
     log(f"[4 pairhmm golden] KAT {int((kat_err < 1e-5).sum())}/{len(kat)} "
         f"within 1e-5 log10 (max {kat_err.max():.2e}); golden rescue "
         f"decisions {decisions}/{len(golden)} ({int(rescued.sum())} rescued); "
-        f"log10 vs scalard max {g_err.max():.2e}")
+        f"log10 vs scalard max {g_err.max():.2e}; use_double: KAT "
+        f"{int((d_kat_err < 1e-5).sum())}/{len(kat)} (max "
+        f"{d_kat_err.max():.2e}), golden {int((d_gold_err < 1e-5).sum())}/"
+        f"{len(golden)} within 1e-5 of scalard (max {d_gold_err.max():.2e}); "
+        f"fast_path: seed-extend kernel vs the golden fast max relative "
+        f"{fast_rel.max():.2e} over {int(nz.sum())} non-zero rows, "
+        f"{int(hits.sum())} hits within 1e-9 of log10(fs) - log10(2^120), "
+        f"{int((~hits).sum())} others equal to the exact engine")
 
     # ---- phase 5: the main path at a realistic size -----------------------
     p_std = SWParameters(*SW_PARAMS)
@@ -574,6 +721,77 @@ def main() -> int:
         f"({t_st:.4f} s), sequential {n_eng / t_eng:.1f} pairs/s "
         f"({t_eng:.4f} s); card {card}")
     launches = {k: sw_n[k] + eng_n[k] + st_n[k] for k in kernels}
+
+    # ---- phase 6b: the engine's use_double and fast_path modes ------------
+    # the 8 regions and the 32 x 12 product region through each mode, with
+    # the launch counts of that run; every output finite, rows of a region
+    # (a row depends on its read and the haps alone here) and the whole
+    # small region bit-equal to the same engine on the CPU; the stream
+    # bit-equal to sequential calls; warm end-to-end pairs/s.  Every region
+    # has hits under fast_path, so the pairs under the gate go to the
+    # per-pair f32 kernel and the shared kernel never runs; a region with
+    # no hit (every read random) follows, which must take the shared kernel
+    sample_reads = [0, 1, 2, 16, 32, 77]
+    for mode, mode_eng, must in (
+            ("use_double", eng_double,
+             lambda n: n["pairhmm_banded_f64"] >= 1
+             and n["pairhmm_shared_f32"] == 0
+             and n["pairhmm_banded_f32"] == 0),
+            ("fast_path", eng_fast,
+             lambda n: n["seed_extend_f32"] >= 1
+             and n["pairhmm_banded_f32"] >= 1
+             and n["pairhmm_shared_f32"] == 0)):
+        (m_out, m_small), m_n, _ = drive(lambda: (
+            [mode_eng.compute_likelihoods(r, h) for r, h in regions],
+            mode_eng.compute_likelihoods(*small)))
+        if not must(m_n):
+            raise AssertionError(f"{mode}: launches {m_n}")
+        for out in m_out:
+            if out.shape != (512, 12) or not np.isfinite(out).all():
+                raise AssertionError(f"{mode}: engine output shape or values")
+        cpu_eng = PairHmmEngine(device="cpu", **{mode: True})
+        want = cpu_eng.compute_likelihoods([reads0[k] for k in sample_reads],
+                                           haps0)
+        if not (np.array_equal(m_out[0][sample_reads], want)
+                and np.array_equal(m_small,
+                                   cpu_eng.compute_likelihoods(*small))):
+            raise AssertionError(f"{mode}: card != CPU")
+        m_stream, m_st_n, _ = drive(lambda: list(
+            mode_eng.compute_likelihoods_stream(iter(regions))))
+        if not all(np.array_equal(a, b) for a, b in zip(m_stream, m_out)):
+            raise AssertionError(f"{mode}: stream != sequential calls")
+        for k in kernels:
+            launches[k] += m_n[k] + m_st_n[k]
+        t0 = time.perf_counter()
+        for r, h in regions:
+            mode_eng.compute_likelihoods(r, h)
+        t_mode = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in mode_eng.compute_likelihoods_stream(iter(regions)):
+            pass
+        t_mode_st = time.perf_counter() - t0
+        log(f"[6b engine {mode}] launches {m_n}, stream {m_st_n}; "
+            f"{len(regions)} regions of 512 x 12 + 1 of 32 x 12, finite; "
+            f"{len(sample_reads)} reads x 12 haps of a region and the 32 x "
+            f"12 region bit-equal to the engine on the CPU; stream bit-equal "
+            f"to sequential calls; warm: {n_eng / t_mode:.1f} pairs/s "
+            f"({t_mode:.4f} s for {len(regions)} regions), stream "
+            f"{n_eng / t_mode_st:.1f} pairs/s ({t_mode_st:.4f} s); card "
+            f"{card}")
+    nohit = no_hit_region(120)
+    if not use_shared_kernel([len(r["bases"]) for r in nohit[0]], nohit[1]):
+        raise AssertionError("the no-hit region should take shared mode")
+    nh_out, nh_n, _ = drive(lambda: eng_fast.compute_likelihoods(*nohit))
+    if nh_n["seed_extend_f32"] != 1 or nh_n["pairhmm_shared_f32"] != 1:
+        raise AssertionError(f"fast_path without hits: launches {nh_n}")
+    if not np.array_equal(nh_out, PairHmmEngine(
+            device="cpu", fast_path=True).compute_likelihoods(*nohit)):
+        raise AssertionError("fast_path without hits: card != CPU")
+    for k in kernels:
+        launches[k] += nh_n[k]
+    log(f"[6b engine fast_path, no hit] launches {nh_n}; "
+        f"{len(nohit[0])} random reads x {len(nohit[1])} haps through the "
+        f"shared kernel, bit-equal to the engine on the CPU")
 
     # ---- phase 7: the plane path ------------------------------------------
     # the second design of both recurrences, through its entry points: the
@@ -827,15 +1045,17 @@ def main() -> int:
 
     # the per-pair kernels: f32 at the product-mode region's 384 pairs and
     # at a 512 x 12 region's 6,144, f64 at its 384 rescue pairs (every 16th
-    # read); each at the wrapper's W against the plain version, then the
-    # sweep over every W up to the read's bands, each bit-equal to it; all
-    # timed as time_pairhmm_banded times them (testing.queued_ms)
+    # read) and at its 6,144 (a region under use_double); each at the
+    # wrapper's W against the plain version, then the sweep over every W up
+    # to the read's bands, each bit-equal to it; all timed as
+    # time_pairhmm_banded times them (testing.queued_ms)
     small_r, small_h = normalize(*small)
     a32 = ph.stage_pairs(small_r, small_h,
                          [(r, h) for r in range(32) for h in range(12)],
                          CTX_F32, dev)
     tail = [(r, h) for r in range(0, 512, 16) for h in range(12)]
     a64 = ph.stage_pairs(reads0, haps0, tail, CTX_F64, dev)
+    a64_big = ph.stage_pairs(reads0, haps0, region_pairs, CTX_F64, dev)
     regs = _build.kernel_resources("pairhmm_banded")
     if any(r.get("spill_stores", 0) or r.get("spill_loads", 0) for r in regs):
         raise AssertionError(f"the per-pair kernels spill: {regs}")
@@ -846,7 +1066,8 @@ def main() -> int:
     for name, a, kern, sweep in (
             ("pairhmm_banded_f32", a32, ph.pairhmm_banded_f32, False),
             ("pairhmm_banded_f32", a32_big, ph.pairhmm_banded_f32, True),
-            ("pairhmm_banded_f64", a64, ph.pairhmm_banded_f64, True)):
+            ("pairhmm_banded_f64", a64, ph.pairhmm_banded_f64, True),
+            ("pairhmm_banded_f64", a64_big, ph.pairhmm_banded_f64, True)):
         n_pairs, n_bands = len(a[6]), (a[0].shape[-1] - 2) // 32
         cells = int((a[2][a[6]].long() * a[4][a[7]].long()).sum())
         b_ms, b_by = bound(cells * FLOPS_PER_CELL,
@@ -878,6 +1099,27 @@ def main() -> int:
                 f"{n_pairs * w / sms:.1f} warps an SM over the launch; carry "
                 f"row in {carry} "
                 f"memory; equal to plain; card {card}")
+    del a64_big
+
+    # the seed-extend kernel at a region's 6,144 pairs (the fast path's
+    # first pass over a region) against its plain version, both on the
+    # staged pairs; the bound counts the positions this data needs
+    a_se = stage_fast(reads0, haps0, region_pairs, dev)
+    p_ms = cuda_ms(lambda: fast_scores_plain(*a_se), 1)
+    k_ms = queued_ms(lambda: se.seed_extend_f32(*a_se), 20)
+    e = compare_seed_extend(a_se)
+    b_ms, b_by, work, n_off = seed_extend_bound(a_se, len(region_pairs))
+    ms["seed_extend_f32"], plain_ms["seed_extend_f32"] = k_ms, p_ms
+    bounds["seed_extend_f32"] = (b_ms, b_by)
+    regs = _build.kernel_resources("seed_extend")
+    log(f"    seed_extend_f32 {len(region_pairs)} pairs 151x420 ("
+        f"{work} read positions compared up to each offset's second "
+        f"mismatch, {n_off} offsets): kernel {k_ms:.4f} ms; plain torch {p_ms:.3f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by}); bound share {b_ms / k_ms:.3f}; max |err| "
+        f"{e}; registers and spills "
+        f"{[(r['registers'], r.get('spill_stores'), r.get('spill_loads')) for r in regs]}"
+        f"; card {card}")
+    del a_se
 
     # the plane kernel: at the wrapper's (R, W) against the plain version
     # and beside the banded f32 kernel on the same staged pairs (both timed
@@ -1010,13 +1252,17 @@ def main() -> int:
                             "mgl_tpu/kernels/sw_pallas.py:689"),
         "pairhmm_plane_f32": ("mgl_tpu_torch/csrc/pairhmm_plane.cu",
                               "mgl_tpu/kernels/pairhmm_pallas.py:62"),
+        # an XLA device function (a lax.scan), not a Pallas kernel
+        "seed_extend_f32": ("mgl_tpu_torch/csrc/seed_extend.cu",
+                            "mgl_tpu/ops/seed_extend.py:52"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": err[name],
          "ms": ms[name], "plain_ms": plain_ms[name],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         # no PyTorch call computes a pair-HMM or SW recurrence
+         # no PyTorch call computes a pair-HMM or SW recurrence, or the
+         # seed-extend scan
          "library_ms": None}
         for name, (src, rep) in replaces.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -67,6 +67,7 @@ _ENTRIES = {
     "mgl_sw_plane_carry_in_shared": [_I] * 4,
     "mgl_pairhmm_plane_f32": [_P] * 8 + [_I] * 6 + [_P] * 3,
     "mgl_pairhmm_plane_carry_in_shared": [_I] * 4,
+    "mgl_seed_extend": [_P] * 8 + [_I] * 3 + [_P] * 2,
 }
 _I64 = ctypes.c_int64
 _HOST_ENTRIES = {

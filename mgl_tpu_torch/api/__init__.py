@@ -6,12 +6,19 @@ Counterparts of ``mgl_tpu.api``, with the same signatures plus
 * :class:`SmithWatermanAligner` - MicrosoftSmithWaterman.align: (ref, alt,
   params, strategy) -> (cigar, offset), and the batched ``align_batch``;
 * :class:`PairHmmEngine` - MicrosoftPairHmm.computeLikelihoods: reads x
-  haps -> log10 likelihood matrix with the f32 -> f64 rescue cascade, and
-  ``compute_likelihoods_stream``, the pipelined form over many regions.
+  haps -> log10 likelihood matrix with the f32 -> f64 rescue cascade (or
+  f64 alone, ``use_double``, or behind the seed-extend estimator,
+  ``fast_path``), and ``compute_likelihoods_stream``, the pipelined form
+  over many regions.
 
 On a CUDA device only the hand-written kernels run; on ``"cpu"`` only
 their plain torch versions do.  Inputs are validated here, since the
-kernels assume non-empty sequences.
+kernels assume non-empty sequences.  The aligner records the JAX
+package's metrics (``sw.pairs``, ``sw.buckets``, ``sw.align_batch`` in
+``mgl_tpu_torch.utils.metrics.METRICS``), logs each bucket's shape and
+device to the ``mgl_tpu_torch.engine`` logger at debug level, and with
+``MGL_TPU_DEBUG_CHECK=1`` checks every result against the NumPy SW
+oracle (``utils/debug_check``).
 """
 
 from __future__ import annotations
@@ -25,6 +32,9 @@ import torch
 from mgl_tpu_torch.batch.bucketing import bucket_pairs
 from mgl_tpu_torch.core.params import OverhangStrategy, SWParameters
 from mgl_tpu_torch.device import resolve_device
+from mgl_tpu_torch.utils import debug_check
+from mgl_tpu_torch.utils.logging import get_logger
+from mgl_tpu_torch.utils.metrics import METRICS
 
 __all__ = [
     "SWResult",
@@ -75,12 +85,21 @@ class SmithWatermanAligner:
         results: list[SWResult | None] = [None] * len(refs)
         buckets = bucket_pairs([len(r) for r in refs], [len(a) for a in alts],
                                max_batch=self.max_batch)
-        for _, idxs in buckets:
-            got = align_batch_banded([refs[i] for i in idxs],
-                                     [alts[i] for i in idxs], params,
-                                     strategy, self.device)
-            for i, (cig, off) in zip(idxs, got):
-                results[i] = SWResult(cig, off)
+        METRICS.count("sw.pairs", len(refs))
+        METRICS.count("sw.buckets", len(buckets))
+        log = get_logger("engine")
+        with METRICS.timer("sw.align_batch"):
+            for (pt, pq), idxs in buckets:
+                log.debug("sw bucket (%d, %d) x%d on %s", pt, pq, len(idxs),
+                          self.device)
+                got = align_batch_banded([refs[i] for i in idxs],
+                                         [alts[i] for i in idxs], params,
+                                         strategy, self.device)
+                for i, (cig, off) in zip(idxs, got):
+                    results[i] = SWResult(cig, off)
+        if debug_check.enabled():
+            debug_check.check_sw_results(refs, alts, params, strategy,
+                                         results)
         return results  # type: ignore[return-value]
 
 
@@ -106,15 +125,19 @@ def _checked_reads(reads: list[dict]) -> list[dict]:
 class PairHmmEngine:
     """PairHMM likelihood engine with the reference's precision cascade.
 
-    ``use_double`` and ``fast_path`` are not ported yet and raise
-    NotImplementedError rather than run another path.
+    ``use_double`` scores every pair in f64 alone (the reference's
+    ``initNative(use_double=true)``), through the f64 per-pair kernel.
+    ``fast_path`` enables the seed-extend tier-0 estimator (the reference
+    ships it dormant; different numbers for well-matching pairs): pairs
+    whose fast score clears MIN_ACCEPTED take it, the rest run the f32
+    pass and the f64 rescue.  ``use_double`` wins when both are set, as in
+    the JAX package.
     """
 
     def __init__(self, use_double: bool = False, fast_path: bool = False,
                  device: str | torch.device = "cuda"):
-        if use_double or fast_path:
-            raise NotImplementedError(
-                "use_double and fast_path are not ported to mgl_tpu_torch yet")
+        self.use_double = use_double
+        self.fast_path = fast_path
         self.device = resolve_device(device)
 
     def compute_likelihoods(self, reads: list[dict], haps: list) -> np.ndarray:
@@ -124,7 +147,8 @@ class PairHmmEngine:
         from mgl_tpu_torch.ops.pairhmm import compute_likelihoods
 
         return compute_likelihoods(_checked_reads(reads),
-                                   [_as_u8(h) for h in haps], self.device)
+                                   [_as_u8(h) for h in haps], self.device,
+                                   self.use_double, self.fast_path)
 
     def compute_likelihoods_stream(self, batches, depth: int = 2):
         """Pipelined likelihoods over a stream of (reads, haps) batches -
@@ -137,8 +161,10 @@ class PairHmmEngine:
         [fetch rescue + emit]; ``depth`` batches wait in the first.
         Single-threaded: the dispatch/finalize split of
         :func:`mgl_tpu_torch.ops.pairhmm.dispatch_likelihoods` does the
-        overlapping.  Yields (R, H) matrices in input order, bit-identical
-        to sequential :meth:`compute_likelihoods` calls."""
+        overlapping.  Under ``use_double`` or ``fast_path`` every batch
+        completes at its dispatch, as in the JAX package, so nothing
+        overlaps.  Yields (R, H) matrices in input order, bit-identical to
+        sequential :meth:`compute_likelihoods` calls."""
         depth = max(depth, 1)
         s1: collections.deque = collections.deque()
         s2: collections.deque = collections.deque()
@@ -159,7 +185,8 @@ class PairHmmEngine:
         from mgl_tpu_torch.ops.pairhmm import dispatch_likelihoods
 
         return dispatch_likelihoods(_checked_reads(reads),
-                                    [_as_u8(h) for h in haps], self.device)
+                                    [_as_u8(h) for h in haps], self.device,
+                                    self.use_double, self.fast_path)
 
     def done(self) -> None:  # parity with PairHMMNativeBinding.done()
         pass

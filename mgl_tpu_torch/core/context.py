@@ -11,6 +11,9 @@ quality context of the reference (``mgl_pairhmm/Context.h``):
   table (Context.h:50-61).
 * ``INITIAL_CONSTANT``— anti-underflow scaler, 2^1020 (double) / 2^120 (float)
   (Context.h:109, 149).
+* ``QualityContext.set_mm_prob`` and :func:`read_transition_rows`, the
+  per-read transition rows of the host oracles and the fast path's
+  all-match probability (``ops/seed_extend.result_match``).
 
 The tables are *value-parity critical*: likelihoods must agree with the
 reference within 1e-5 in log10 space.  They are read from
@@ -45,6 +48,19 @@ class QualityContext:
     initial_constant: float
     log10_initial_constant: float
 
+    def set_mm_prob(self, ins_qual, del_qual) -> np.ndarray:
+        """Match-continuation probability (Context.h:123-134 / 163-174).
+
+        ``ins_qual``/``del_qual`` are integer arrays already masked to
+        ``& 127`` by the caller (compute_prob_scalar.cc:76-77), so the
+        MAX_QUAL overflow branch never triggers.
+        """
+        ins_qual = np.asarray(ins_qual, dtype=np.int64)
+        del_qual = np.asarray(del_qual, dtype=np.int64)
+        min_q = np.minimum(ins_qual, del_qual)
+        max_q = np.maximum(ins_qual, del_qual)
+        return self.match_to_match[((max_q * (max_q + 1)) >> 1) + min_q]
+
 
 def _build(dtype, ic_exp: int) -> QualityContext:
     """One precision tier's context from the committed table dump."""
@@ -66,3 +82,31 @@ def _build(dtype, ic_exp: int) -> QualityContext:
 CTX_F32 = _build(np.float32, 120)
 # Context<double>: INITIAL_CONSTANT = 2^1020 (Context.h:109)
 CTX_F64 = _build(np.float64, 1020)
+
+
+def read_transition_rows(read_q, read_i, read_d, read_c, ctx: QualityContext):
+    """Per-row transition/emission vectors for one or more reads.
+
+    Re-derivation of compute_prob_scalar.cc:74-86: given the four quality
+    tracks (raw bytes), returns (pMM, pGapM, pMX, pMY, pZZ, distm) with a
+    leading zero row (row 0 of the DP has no read base).  Works on any
+    leading batch shape; the last axis is the read-length axis.
+    """
+    q = np.asarray(read_q, dtype=np.uint8) & 127
+    i = np.asarray(read_i, dtype=np.uint8) & 127
+    d = np.asarray(read_d, dtype=np.uint8) & 127
+    c = np.asarray(read_c, dtype=np.uint8) & 127
+    one = ctx.dtype(1.0)
+    p_mm = ctx.set_mm_prob(i, d)
+    p_gapm = (one - ctx.ph2pr[c]).astype(ctx.dtype)
+    p_mx = ctx.ph2pr[i]
+    p_my = ctx.ph2pr[d]
+    p_zz = ctx.ph2pr[c]
+    distm = ctx.ph2pr[q]
+
+    def _prepend_zero(a):
+        pad = [(0, 0)] * (a.ndim - 1) + [(1, 0)]
+        return np.pad(a, pad)
+
+    return tuple(_prepend_zero(v) for v in (p_mm, p_gapm, p_mx, p_my, p_zz,
+                                            distm))

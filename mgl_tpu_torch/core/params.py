@@ -4,6 +4,9 @@ The port's copy of ``mgl_tpu/core/params.py``, after the reference's
 shared SW definitions (``sw_common.h``):
 
 * overhang-strategy flags (sw_common.h:22-25)
+* CIGAR state characters (sw_common.h:27-30) and ``SW_NEG_INF``
+  (sw_common.h:33), which the scalar SW oracle (``ref_impl/sw_scalar``)
+  uses
 * ``DP_NEG_INF``, the int-matrix DP "minus infinity" (sw.cpp:8)
 * ``swParameters`` (sw_common.h:42-47) and the JNI sign normalization
   (com_microsoft_mgl_smithwaterman_MicrosoftSmithWaterman.cpp:52-55)
@@ -28,6 +31,14 @@ class OverhangStrategy(enum.IntEnum):
     LEADING_INDEL = 0x04
     IGNORE = 0x08
 
+
+# CIGAR states (sw_common.h:27-30)
+STATE_MATCH = "M"
+STATE_INS = "I"
+STATE_DEL = "D"
+STATE_CLIP = "S"
+
+SW_NEG_INF = -0x40000000  # sw_common.h:33
 
 # int-matrix DP "minus infinity": INT_MIN / 2, as used for E/F initial
 # state in the scalar kernel (sw.cpp:8).  Safe against int32 underflow.

@@ -20,8 +20,12 @@ Counterpart of ``mgl_tpu/ops/pairhmm.py``:
   (:524): exact-duplicate hap dedup, then the shared-hap-set pass when the
   work estimate of ``_shared_product_scores`` (:389) favours it, else the
   per-pair product pass over length buckets; log10; and the f64 rescue of
-  pairs under ``MIN_ACCEPTED`` (1e-28).  :func:`dispatch_likelihoods` is
-  its dispatch/finalize split for the pipelined stream (:681).
+  pairs under ``MIN_ACCEPTED`` (1e-28).  Its two modes: ``use_double``
+  sends every pair to the f64 tier alone; ``use_fast_path`` first runs
+  the seed-extend scorer (``ops/seed_extend.py``, kernel
+  ``csrc/seed_extend.cu``) over the product, and pairs that clear the
+  gate keep its score.  :func:`dispatch_likelihoods` is its
+  dispatch/finalize split for the pipelined stream (:681).
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ import torch
 
 from mgl_tpu_torch.batch.bucketing import bucket_dims, bucket_pairs
 from mgl_tpu_torch.tables import CTX_F32, CTX_F64, MIN_ACCEPTED
+from mgl_tpu_torch.utils.logging import get_logger
+from mgl_tpu_torch.utils.metrics import METRICS
 
 AMBIG = ord("N")
 N_PLANES = 7   # pMM, pGapM, pMX, pMY, pZZ, distm on match, distm on mismatch
@@ -321,33 +327,94 @@ def _f32_start(reads, haps, shared: bool, device
     """Dispatch the f32 pass of a full reads x haps product (reads and haps
     normalized, haps distinct): the shared-hap-set kernel if ``shared``,
     else the per-pair product kernel over length buckets.  Returns the
-    fetch of the (n_r * n_h,) float64 scores in row-major pair order."""
+    fetch of the (n_r * n_h,) float64 scores in row-major pair order.
+    The shared pass's dispatch and fetch each count in the ``engine.f32``
+    timer, as the JAX engine times its shared pass (ops/pairhmm.py:594,
+    :720)."""
     from mgl_tpu_torch.kernels.pairhmm_cuda import shared_scores
 
-    if shared:
+    if not shared:
+        return _bucketed_start(CTX_F32, reads, haps,
+                               _product(len(reads), len(haps)), device)
+    with METRICS.timer("engine.f32"):
         fetch = shared_scores(reads, haps, device)
-        return lambda: fetch().reshape(-1)
-    return _bucketed_start(CTX_F32, reads, haps,
-                           _product(len(reads), len(haps)), device)
+
+    def fetch_flat() -> np.ndarray:
+        with METRICS.timer("engine.f32"):
+            return fetch().reshape(-1)
+
+    return fetch_flat
+
+
+def _fast_start(reads, haps, device) -> Callable[[], np.ndarray]:
+    """The fast path's first pass over a full reads x haps product (reads
+    and haps normalized, haps distinct), as ops/pairhmm.py:571-626: the
+    seed-extend scores of every pair, synchronised; pairs scoring at least
+    MIN_ACCEPTED keep them, and the rest go through the f32 pass - the
+    shared kernel only when no pair hits and the estimate favours it
+    (:592), else the per-pair kernel over the rest.  Returns the fetch of
+    the (n_r * n_h,) float64 scores."""
+    from mgl_tpu_torch.kernels.pairhmm_cuda import to_host
+    from mgl_tpu_torch.kernels.seed_extend_cuda import fast_scores
+
+    pairs = _product(len(reads), len(haps))
+    fs = to_host(fast_scores(reads, haps, pairs, device))()
+    hit = fs >= MIN_ACCEPTED
+    if not hit.any():
+        return _f32_start(reads, haps, _shared_mode(reads, haps), device)
+    scores = fs.astype(np.float64)
+    rest = np.nonzero(~hit)[0]
+    if not len(rest):
+        return lambda: scores
+    fetch = _bucketed_start(CTX_F32, reads, haps, [pairs[b] for b in rest],
+                            device)
+
+    def fetch_all() -> np.ndarray:
+        scores[rest] = fetch()
+        return scores
+
+    return fetch_all
+
+
+def _first_pass(reads, haps, device, use_double: bool, use_fast_path: bool
+                ) -> Callable[[], np.ndarray]:
+    """Dispatch the pass before the rescue over a full reads x haps product
+    (reads and haps normalized, haps distinct) and return the fetch of its
+    (n_r * n_h,) float64 scores.  ``use_double`` skips the f32 pass and the
+    fast path (ops/pairhmm.py:572, :583): every score is -1, under the
+    gate, so :func:`_finish_start` sends every pair to the f64 tier.  Else
+    ``use_fast_path`` runs :func:`_fast_start`, and without either the
+    f32 pass runs in shared mode where the estimate favours it."""
+    if use_double:
+        n = len(reads) * len(haps)
+        return lambda: np.full(n, -1.0)
+    if use_fast_path:
+        return _fast_start(reads, haps, device)
+    return _f32_start(reads, haps, _shared_mode(reads, haps), device)
 
 
 def compute_likelihoods(reads: list[dict], haps: list[np.ndarray],
-                        device: torch.device) -> np.ndarray:
+                        device: torch.device, use_double: bool = False,
+                        use_fast_path: bool = False) -> np.ndarray:
     """(n_reads, n_haps) float64 log10 likelihoods: f32 forward on
     ``device``, f64 rescue for scores under 1e-28.  ``reads`` are dicts of
     uint8 arrays bases/q/i/d/c, ``haps`` uint8 arrays.  Identical haps
-    score identically against every read, so each is scored once."""
+    score identically against every read, so each is scored once.
+    ``use_double`` scores every pair in f64 alone (the reference's
+    all-double configuration); ``use_fast_path`` lets pairs whose
+    seed-extend score clears MIN_ACCEPTED take it and skip the DP."""
     reads, haps = normalize(reads, haps)
     uniq, col = _dedup_haps(haps)
     haps = [haps[k] for k in uniq]
-    scores = _f32_start(reads, haps, _shared_mode(reads, haps), device)()
+    scores = _first_pass(reads, haps, device, use_double, use_fast_path)()
     out = _finish_start(scores, reads, haps,
                         _product(len(reads), len(haps)), device)()
     return out.reshape(len(reads), len(haps))[:, col]
 
 
 def dispatch_likelihoods(reads: list[dict], haps: list[np.ndarray],
-                         device: torch.device):
+                         device: torch.device, use_double: bool = False,
+                         use_fast_path: bool = False):
     """Async form of :func:`compute_likelihoods` for pipelined batch
     streams (ops/pairhmm.py:681).  Dispatches the f32 pass and returns
     ``step1``; ``step1()`` fetches the f32 scores and dispatches the
@@ -356,14 +423,17 @@ def dispatch_likelihoods(reads: list[dict], haps: list[np.ndarray],
     stream without a sync; results come back by ``non_blocking`` copies
     into pinned host buffers, each waited on through its CUDA event.
 
-    Batches outside shared mode (one hap, duplicate haps, or a product the
-    work estimate prefers) complete synchronously here and the closures
+    Batches outside shared mode (``use_double``, ``use_fast_path``, one
+    hap, duplicate haps, or a product the work estimate prefers) complete
+    synchronously here, as the JAX engine's (:705-712), and the closures
     only hand back the result, identical to compute_likelihoods."""
     norm_reads, norm_haps = normalize(reads, haps)
     n_r, n_h = len(norm_reads), len(norm_haps)
     distinct = len({h.tobytes() for h in norm_haps}) == n_h
-    if not (distinct and _shared_mode(norm_reads, norm_haps)):
-        out = compute_likelihoods(reads, haps, device)
+    if (use_double or use_fast_path
+            or not (distinct and _shared_mode(norm_reads, norm_haps))):
+        out = compute_likelihoods(reads, haps, device, use_double,
+                                  use_fast_path)
         return lambda: (lambda: out)
     fetch = _f32_start(norm_reads, norm_haps, True, device)
 
@@ -391,18 +461,23 @@ def _finish_start(scores: np.ndarray, reads, haps,
                   ) -> Callable[[], np.ndarray]:
     """log10 of the f32 ``scores`` of ``pairs`` and the dispatch of the f64
     rescue of those under MIN_ACCEPTED (ops/pairhmm.py:641-678).  Returns
-    the fetch of the (len(pairs),) float64 log10 likelihoods."""
+    the fetch of the (len(pairs),) float64 log10 likelihoods.  The
+    rescue's dispatch and fetch each count in the ``engine.rescue``
+    timer (:659, :665)."""
     rescue = np.nonzero(scores < float(MIN_ACCEPTED))[0]
     with np.errstate(divide="ignore", invalid="ignore"):
         out = np.log10(scores) - float(CTX_F32.log10_initial_constant)
     if not len(rescue):
         return lambda: out
-    fetch = _bucketed_start(CTX_F64, reads, haps, [pairs[b] for b in rescue],
-                            device)
+    with METRICS.timer("engine.rescue"):
+        fetch = _bucketed_start(CTX_F64, reads, haps,
+                                [pairs[b] for b in rescue], device)
 
     def apply() -> np.ndarray:
+        with METRICS.timer("engine.rescue"):
+            vals = fetch()
         with np.errstate(divide="ignore"):
-            out[rescue] = (np.log10(fetch())
+            out[rescue] = (np.log10(vals)
                            - float(CTX_F64.log10_initial_constant))
         return out
 
@@ -413,14 +488,20 @@ def _bucketed_start(ctx, reads, haps, pairs, device
                     ) -> Callable[[], np.ndarray]:
     """Dispatch the per-pair kernel in ``ctx``'s precision over the pairs'
     length buckets; returns the fetch of the (len(pairs),) float64
-    scores."""
+    scores.  Each f32 bucket's shape and device go to the ``engine``
+    logger at debug level, as the JAX engine logs its buckets (ops/pairhmm.py:610)."""
     from mgl_tpu_torch.kernels.pairhmm_cuda import scores, to_host
 
     la = [len(reads[ri]["bases"]) for ri, _ in pairs]
     lb = [len(haps[hi]) for _, hi in pairs]
-    pending = [(idxs, to_host(scores(reads, haps, [pairs[k] for k in idxs],
-                                     ctx, device)))
-               for _, idxs in bucket_pairs(la, lb)]
+    log = get_logger("engine")
+    pending = []
+    for (pa, pb), idxs in bucket_pairs(la, lb):
+        if ctx is CTX_F32:
+            log.debug("pairhmm bucket (%d, %d) x%d on %s", pa, pb, len(idxs),
+                      device)
+        pending.append((idxs, to_host(scores(
+            reads, haps, [pairs[k] for k in idxs], ctx, device))))
 
     def fetch() -> np.ndarray:
         out = np.empty(len(pairs), np.float64)

@@ -10,7 +10,10 @@ on 8 GATK-shaped regions of 512 reads x 12 haps (151 x 420 bp, every 16th
 read in the f64 rescue tier), which take the shared-hap-set kernel;
 ``PairHmmEngine.compute_likelihoods_stream`` over the same 8 regions,
 which overlaps each region's host work with the card's work on the one
-before; and the SW plane path as ``chip_smoke.py`` phase 7 drives it:
+before; the same 8 regions through ``PairHmmEngine(use_double=True)``
+(every pair in the f64 per-pair kernel) and ``PairHmmEngine(fast_path=
+True)`` (the seed-extend kernel, then the per-pair f32 kernel over the
+pairs under the gate and the f64 rescue); and the SW plane path as ``chip_smoke.py`` phase 7 drives it:
 the 1,972 SW goldens through ``sw_cuda.align_batch``, one launch a
 parameter group (12), and the 10,000 pairs of 150 bp over the aligner's
 buckets through ``sw_cuda.align_batch`` and ``sw_cuda.sw_plane_scores``
@@ -39,7 +42,7 @@ import torch
 
 from mgl_tpu_torch import api
 from mgl_tpu_torch.batch.bucketing import bucket_pairs
-from mgl_tpu_torch.kernels import pairhmm_cuda, sw_cuda
+from mgl_tpu_torch.kernels import pairhmm_cuda, seed_extend_cuda, sw_cuda
 from mgl_tpu_torch.ops import pairhmm
 from mgl_tpu_torch.testing import (engine_region, golden_groups, load_golden,
                                    sw_pairs, sw_tensors)
@@ -54,17 +57,22 @@ STAGES = ((api, "bucket_pairs"), (api, "_checked_reads"),
           (pairhmm, "normalize"), (pairhmm, "_dedup_haps"),
           (pairhmm, "use_shared_kernel"), (pairhmm, "_bucketed_start"),
           (pairhmm, "bucket_pairs"), (pairhmm, "_finish_start"),
+          (pairhmm, "_fast_start"), (seed_extend_cuda, "fast_scores"),
+          (seed_extend_cuda, "stage_fast"),
+          (seed_extend_cuda, "seed_extend_f32"),
           (pairhmm_cuda, "stage_shared"),
           (pairhmm_cuda, "compute_haplotype_similarities"),
           (pairhmm_cuda, "segment_table"), (pairhmm_cuda, "stage_pairs"),
           (pairhmm_cuda, "stage_reads"), (pairhmm_cuda, "stack_tracks"),
           (pairhmm_cuda, "read_planes"), (pairhmm_cuda, "rescale_shared"),
           (pairhmm_cuda, "pairhmm_shared_f32"),
+          (pairhmm_cuda, "pairhmm_banded_f32"),
           (pairhmm_cuda, "pairhmm_banded_f64"))
 
 
 WORKLOADS = ("sw_10000x150_traceback", "engine_8x512x12",
-             "engine_stream_8x512x12", "plane_sw_goldens",
+             "engine_stream_8x512x12", "engine_double_8x512x12",
+             "engine_fast_8x512x12", "plane_sw_goldens",
              "plane_sw_10000x150")
 
 
@@ -168,6 +176,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     aligner = api.SmithWatermanAligner(device=dev)
     engine = api.PairHmmEngine(device=dev)
+    engine_double = api.PairHmmEngine(use_double=True, device=dev)
+    engine_fast = api.PairHmmEngine(fast_path=True, device=dev)
     sw_t, sw_q = sw_pairs(21, 10_000, (150, 150), (150, 150))
     regions = [engine_region(100 + k) for k in range(8)]
     params = api.SWParameters(25, -50, 110, 6)
@@ -198,6 +208,14 @@ def main(argv=None) -> int:
             sum(len(r) * len(h) for r, h in regions)),
         "engine_stream_8x512x12": (
             lambda: list(engine.compute_likelihoods_stream(iter(regions))),
+            sum(len(r) * len(h) for r, h in regions)),
+        "engine_double_8x512x12": (
+            lambda: [engine_double.compute_likelihoods(r, h)
+                     for r, h in regions],
+            sum(len(r) * len(h) for r, h in regions)),
+        "engine_fast_8x512x12": (
+            lambda: [engine_fast.compute_likelihoods(r, h)
+                     for r, h in regions],
             sum(len(r) * len(h) for r, h in regions)),
         "plane_sw_goldens": (
             lambda: [sw_cuda.align_batch(*g, dev) for g in gold],

@@ -1,7 +1,8 @@
 """Fixtures and checks shared by the port's tests, ``chip_smoke.py`` and
 ``mgl_tpu_torch.profile_e2e``: seeded SW pairs and GATK-shaped PairHMM
-regions, hap sets for the shared kernel's edges, golden rows, tensor
-packers, traceback comparisons of both layouts and CUDA-event timers.
+regions, hap sets for the shared kernel's edges, the seed-extend
+scorer's edge pairs, golden rows, tensor packers, traceback comparisons
+of both layouts and CUDA-event timers.
 Nothing on the main path imports this module.
 """
 
@@ -131,6 +132,18 @@ def engine_region(seed: int, n_reads: int = 512, n_haps: int = 12,
     return reads, haps
 
 
+def no_hit_region(seed: int, n_reads: int = 128, n_haps: int = 12,
+                  rdlen: int = 151, haplen: int = 420
+                  ) -> tuple[list[dict], list[np.ndarray]]:
+    """:func:`engine_region`'s haps and qualities with every read's bases
+    random: no pair has an offset with fewer than two mismatches, so
+    under ``fast_path`` no pair hits and a full product that the work
+    estimate sends to the shared kernel takes it."""
+    reads, haps = engine_region(seed, n_reads, n_haps, rdlen, haplen)
+    rng = np.random.default_rng(seed + 1)
+    return [{**r, "bases": rng.choice(ACGT, rdlen)} for r in reads], haps
+
+
 def snp(h: np.ndarray, p: int) -> np.ndarray:
     """``h`` with base p changed to the next of A, C, G, T."""
     h = h.copy()
@@ -186,6 +199,47 @@ def pair_edge_set(seed: int, read_lens, hap_lens
              for k, n in enumerate(read_lens)]
     pairs = [(r, h) for r in range(len(reads)) for h in range(len(haps))]
     return reads, haps, pairs
+
+
+def seed_extend_edge_set(seed: int, long_hap: int = 30_000
+                         ) -> tuple[list[dict], list[np.ndarray], list[tuple]]:
+    """Reads and haps at the seed-extend scorer's edges, all pairs
+    (read-major): haps of 30, 40 and 20 bases, one of 200 with two N and
+    one of ``long_hap`` bases; a 50-base read (longer than the 30- and
+    40-base haps: no offset), a copy of the 40-base hap (one offset, an
+    exact match), a one-base read (whose sum over the long hap's offsets
+    overflows to inf), an 80-base read with two N, and a 151-base read
+    with one SNP on a Q0 base (corr = inf and resultMatch = 0, so its one
+    mismatch adds NaN).  Bases are uppercase ACGTN, as the engine
+    normalizes them."""
+    rng = np.random.default_rng(seed)
+    base = rng.choice(ACGT, max(long_hap, 400))
+    n_hap = base[:200].copy()
+    n_hap[[17, 120]] = ord("N")
+    haps = [base[:30].copy(), base[:40].copy(), base[:20].copy(), n_hap,
+            base[:long_hap].copy()]
+    n_read = base[50:130].copy()
+    n_read[[3, 60]] = ord("N")
+    bases = [base[7:57].copy(), base[:40].copy(), base[5:6].copy(), n_read,
+             snp(base[100:251], 70)]
+    reads = []
+    for b in bases:
+        q = rng.integers(10, 50, len(b)).astype(np.uint8)
+        reads.append(dict(bases=b, q=q, i=np.full(len(b), 45, np.uint8),
+                          d=np.full(len(b), 45, np.uint8),
+                          c=np.full(len(b), 10, np.uint8)))
+    reads[-1]["q"][70] = 0
+    pairs = [(r, h) for r in range(len(reads)) for h in range(len(haps))]
+    return reads, haps, pairs
+
+
+def same_scores(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two float tensors hold the same bits, NaN matching any NaN
+    (the card's NaN and the host's differ in sign and payload)."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a.masked_fill(nan, 0).view(torch.int32),
+        b.masked_fill(nan, 0).view(torch.int32)))
 
 
 def long_read_pairs(seed: int, read_lens, hap_len: int

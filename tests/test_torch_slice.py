@@ -105,9 +105,6 @@ def test_api_validation_and_unported_options():
         PairHmmEngine(device="cpu").compute_likelihoods(
             [dict(bases=b"ACGT", q=[30, 30], i=[30] * 4, d=[30] * 4,
                   c=[10] * 4)], [b"ACGT"])
-    for kw in ({"use_double": True}, {"fast_path": True}):
-        with pytest.raises(NotImplementedError):
-            PairHmmEngine(device="cpu", **kw)
 
 
 @pytest.mark.parametrize("cls", [SmithWatermanAligner, PairHmmEngine])
@@ -187,8 +184,9 @@ def test_port_imports_nothing_of_the_jax_package():
 
 def test_slice_never_imports_jax(tmp_path):
     """Running both entry points of the port and the stream, in shared and
-    product mode, leaves jax and every mgl_tpu module out of sys.modules
-    (a fresh interpreter, so no other test's import counts)."""
+    product mode, and the engine's use_double and fast_path modes, leaves
+    jax and every mgl_tpu module out of sys.modules (a fresh interpreter,
+    so no other test's import counts)."""
     code = (
         "import sys, numpy as np\n"
         "from mgl_tpu_torch.api import (SmithWatermanAligner, PairHmmEngine,"
@@ -205,6 +203,9 @@ def test_slice_never_imports_jax(tmp_path):
         " engine_region(3, 4, 3, 40, 60)]\n"
         "for out in eng.compute_likelihoods_stream(iter(batches)):\n"
         "    assert np.isfinite(out).all()\n"
+        "for kw in ({'use_double': True}, {'fast_path': True}):\n"
+        "    assert np.isfinite(PairHmmEngine(device='cpu', **kw)"
+        ".compute_likelihoods(*batches[1])).all()\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'mgl_tpu')"
         " or m.startswith(('jax.', 'mgl_tpu.')))\n"
         "assert not bad, bad\n"
