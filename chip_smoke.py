@@ -4,10 +4,11 @@
     python3 chip_smoke.py        # from the root of a checkout, one card
 
 The quickest proof that the port still starts on the card.  It builds the
-eight CUDA kernels (six sources) from ``mgl_tpu_torch/csrc``, one nvcc
-each, all started together, and the host CIGAR decoder from
-``csrc/host``, holds each kernel against its plain torch version on the
-card, runs the goldens through both GATK entry points
+nine CUDA kernels (seven sources) from ``mgl_tpu_torch/csrc``, one nvcc
+each, all started together, and the host library (the CIGAR decoder and
+the mapper's seeding) from ``csrc/host``, holds each kernel against its
+plain torch version on the card, runs the goldens through both GATK
+entry points
 (``SmithWatermanAligner.align_batch``,
 ``PairHmmEngine.compute_likelihoods``, also with ``use_double`` and
 ``fast_path``), then drives the main path at a realistic size - the
@@ -17,7 +18,9 @@ engine's two modes over the same regions; then the
 plane path, the second design of both recurrences
 (``sw_cuda.align_batch``, ``sw_cuda.sw_plane_scores``,
 ``pairhmm_cuda.forward_scores_plane``), against the goldens and the
-banded kernels.  Phases:
+banded kernels; then the read mapper (``map_reads_stream``) and
+``align_and_sort`` on a 64 Mbp reference, through the window gather and
+the banded SW kernel in score mode.  Phases:
 
 0. environment (card, power limit, CUDA, nvcc, the port's host library);
 1. build of the kernels;
@@ -26,7 +29,8 @@ banded kernels.  Phases:
    PairHMM - at every warps-a-block count W, the plane PairHMM kernel at
    every W and rows a lane R, with the carry row in shared and in global
    memory; the seed-extend kernel on the golden rows, a region's product
-   and its edge pairs);
+   and its edge pairs; the window gather at every nibble shift and both
+   reference edges, flat and blocked, odd and even read lengths);
 3. all SW golden cases, CIGAR and offset exact;
 4. PairHMM known answers and golden rows through the cascade, and
    through ``use_double`` and ``fast_path``;
@@ -38,13 +42,18 @@ banded kernels.  Phases:
    ``fast_path`` on a region with no hit, through the shared kernel;
 7. the plane path: SW goldens, the 150 bp batch and PairHMM regions,
    bit-equal to the banded kernels, with launch counts;
+7b. the read mapper at a realistic size (see :func:`run_mapper`): the
+   index build, ``map_reads_stream`` and ``align_and_sort``, with launch
+   counts, window accuracy, sampled scores against the plain path on the
+   card, the sort against NumPy, warm reads/s, the host stages and the
+   card's idle share over a warm chunk;
 8. kernel and plain times at the main path's shapes, with bounds, and
    the pipelined kernels' W sweeps (registers and spills, warps an SM,
    carry placement); the plane SW kernel also into preallocated outputs,
    apart from its wrapper's zero fill; the plane PairHMM kernel beside
    the banded f32 kernel on the same pairs, with its R x W sweep; the
    seed-extend kernel and the f64 per-pair kernel at a region's 6,144
-   pairs.
+   pairs; the window gather at one mapper chunk.
 
 Any failed phase raises and the script exits non-zero.  The last line is
 one JSON object naming the device; the line before it lists the kernels
@@ -263,6 +272,191 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+# the window gather, counted as what the function needs: a shift and a
+# mask to take a base's nibble out of its word (the bound is bytes)
+GATHER_OPS_PER_BASE = 2
+# the mapper phase: BASELINE config 4's reference and reads (64 Mbp, 150
+# bp at 1% error, k = 16, chunks of 131,072), cut to 262,144 reads
+MAP_REF_LEN = 64_000_000
+MAP_READS = 262_144
+MAP_CHUNK = 131_072
+MAP_READ_LEN = 150
+
+
+def compare_gather(dev) -> tuple[float, str]:
+    """The window gather kernel vs its plain version on the card, bit for
+    bit: a 1 Mbp reference with N runs and lowercase bases, flat and
+    blocked (``_BLOCK_GATE`` forced to 1 with 256 kbp rows), reads of 150
+    and 151 bp with N and lowercase bases, windows at all eight nibble
+    shifts, at the first and the last words and at random.  Raises on a
+    difference; returns (0.0, what was held)."""
+    import numpy as np
+    import torch
+
+    from mgl_tpu_torch.kernels.window_cuda import (window_gather,
+                                                   window_gather_plain)
+    from mgl_tpu_torch.pipelines import mapper as mp
+    from mgl_tpu_torch.testing import ACGT, window_starts
+
+    rng = np.random.default_rng(41)
+    ref = ACGT[rng.integers(0, 4, 1_000_003)]
+    ref[rng.integers(0, len(ref), 500)] = ord("N")
+    ref[1000:1400] += ord("a") - ord("A")        # lowercase (n for N)
+    mixed = np.frombuffer(b"ACGTNacgtn", np.uint8)
+    saved = mp._BLOCK_GATE, mp._BLOCK_BITS
+    held = []
+    try:
+        for layout, gate, bits in (("flat", *saved), ("blocked", 1, 18)):
+            mp._BLOCK_GATE, mp._BLOCK_BITS = gate, bits
+            words, blocked = mp._ref_device(mp.ReferenceIndex.build(ref),
+                                            dev)
+            if blocked != (layout == "blocked"):
+                raise AssertionError(f"window gather: {layout} layout not "
+                                     f"taken")
+            for L in (150, 151):
+                wlen = L + 48
+                starts = window_starts(L, len(ref), wlen, 4096)
+                reads = rng.choice(mixed, (len(starts), L))
+                args = (words, tuple(torch.from_numpy(s).to(dev) for s in
+                                     mp._split_starts(starts, blocked)),
+                        torch.from_numpy(mp._pack_codes(reads)).to(dev),
+                        wlen, L)
+                got = window_gather(*args)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                want = window_gather_plain(*args)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"window gather != plain ({layout}, "
+                                         f"L = {L})")
+                held.append(f"{layout} L={L} {len(starts)} windows")
+    finally:
+        mp._BLOCK_GATE, mp._BLOCK_BITS = saved
+    return 0.0, ", ".join(held)
+
+
+def run_mapper(dev, drive, ref_len: int = MAP_REF_LEN,
+               n_reads: int = MAP_READS, chunk: int = MAP_CHUNK,
+               read_len: int = MAP_READ_LEN, n_check: int = 1024) -> dict:
+    """Phase 7b: the read mapper at a realistic size, through its entry
+    points on ``dev``.
+
+    The workload is BASELINE config 4's (``tools/run_scale_configs.py``):
+    a simulated 64 Mbp reference made from a seed, reads of 150 bp at 1%
+    substitutions, the k = 16 index by the native radix build, and
+    ``map_reads_stream`` in chunks of 131,072; then ``align_and_sort`` of
+    the same reads (config 5 on one card).  The cut: config 4 maps
+    1,048,576 reads (``tests/golden/scale_report.json``); this phase maps
+    262,144, two chunks, to stay inside the script's time limit.
+
+    ``drive`` runs the main path with the launch counts set to 0 just
+    before and read just after.  Checks: the true start lies in the
+    window for at least 99% of reads; the scores of ``n_check`` sampled
+    non-exact windows equal the plain path's on the same device (the plain
+    gather feeding ``sw_banded_plain``); align_and_sort's positions and
+    scores equal the stream's, and its keys ascend and equal a stable
+    NumPy argsort of the same keys.  Then a warm pass with the ``map.*``
+    stage times, and on a card the idle share over one warm chunk."""
+    import numpy as np
+    import torch
+
+    from mgl_tpu_torch.kernels.sw_cuda import sw_banded_plain
+    from mgl_tpu_torch.kernels.window_cuda import window_gather_plain
+    from mgl_tpu_torch.pipelines import mapper as mp
+    from mgl_tpu_torch.pipelines.align_sort import (align_and_sort,
+                                                    coordinate_keys)
+    from mgl_tpu_torch.profile_e2e import _tally
+    from mgl_tpu_torch.testing import simulate_reads
+    from mgl_tpu_torch.utils.metrics import METRICS
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    ref, reads, true_pos = simulate_reads(0, ref_len, n_reads, read_len)
+    t_sim = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = mp.ReferenceIndex.build(ref, k=16)
+    t_index = time.perf_counter() - t0
+
+    def main_path():
+        out = mp.map_reads_stream(index, reads, chunk=chunk, device=dev)
+        srt = align_and_sort(index, reads, device=dev)
+        sync()
+        return out, srt
+
+    (out, srt), launches, t_cold = drive(main_path)
+    pos, pad = out["pos"], out["window_pad"]
+    wlen = read_len + 2 * pad
+    inside = (pos >= 0) & (true_pos >= pos) & (true_pos <= pos + wlen
+                                                - read_len)
+    accuracy = float(inside.mean())
+    if accuracy < 0.99:
+        raise AssertionError(f"mapper: the true start lies in the window for "
+                             f"{accuracy:.4f} of reads (< 0.99)")
+    # sampled non-exact windows against the plain path on the same device
+    rest = np.nonzero((pos >= 0) & (out["offset"] < 0))[0]
+    pick = np.sort(np.random.default_rng(1).choice(
+        rest, min(n_check, len(rest)), replace=False))
+    oriented = np.where(out["strand"][pick, None] == 1,
+                        mp.revcomp(reads[pick]), reads[pick])
+    words, blocked = mp._ref_device(index, dev)
+    tgt, qry = window_gather_plain(
+        words, tuple(torch.from_numpy(s).to(dev)
+                     for s in mp._split_starts(pos[pick], blocked)),
+        torch.from_numpy(mp._pack_codes(oriented)).to(dev), wlen, read_len)
+    full = lambda v: torch.full((len(pick),), v, dtype=torch.int32,
+                                device=dev)
+    ez, _ = sw_banded_plain(tgt, qry, full(wlen), full(read_len), *SW_PARAMS,
+                            indel_init=False, with_traceback=False)
+    plain = ez[2].cpu().numpy().astype(np.int64)
+    if not np.array_equal(plain, out["score"][pick]):
+        raise AssertionError(f"mapper: {int((plain != out['score'][pick]).sum())}"
+                             f" of {len(pick)} sampled scores differ from the "
+                             f"plain path")
+    # align_and_sort: the stream's seeding and scores, keys in order
+    for k in ("pos", "score", "strand", "offset"):
+        if not np.array_equal(srt[k], out[k]):
+            raise AssertionError(f"align_and_sort {k} != map_reads_stream's")
+    keys = coordinate_keys(np.where(srt["contig"] >= 0, srt["contig"], 0),
+                           np.where(srt["local_pos"] >= 0, srt["local_pos"],
+                                    -1), np.arange(n_reads) & 0xFFFF)
+    order = np.argsort(keys, kind="stable")
+    if not ((srt["keys"][1:] >= srt["keys"][:-1]).all()
+            and np.array_equal(srt["keys"], keys[order])
+            and np.array_equal(srt["order"], order)):
+        raise AssertionError("align_and_sort: keys or order != NumPy's")
+    # warm: the whole stream, then one chunk under the profiler
+    METRICS.reset()
+    t0 = time.perf_counter()
+    mp.map_reads_stream(index, reads, chunk=chunk, device=dev)
+    sync()
+    t_warm = time.perf_counter() - t0
+    stages = {k: v for k, v in METRICS.snapshot()["timers_s"].items()
+              if k.startswith("map.")}
+    idle = busy_ms = wall = None
+    if dev.type == "cuda":
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            mp.map_reads_stream(index, reads[:chunk], chunk=chunk,
+                                device=dev)
+            sync()
+            wall = time.perf_counter() - t0
+        busy = _tally(prof)[2]
+        if busy is not None:
+            busy_ms, idle = busy / 1e3, 1.0 - busy / 1e6 / wall
+    return {"index": index, "reads": reads, "out": out, "wlen": wlen,
+            "launches": launches, "t_sim": t_sim, "t_index": t_index,
+            "n_kmers": len(index.sorted_kmers), "t_cold": t_cold,
+            "t_warm": t_warm, "accuracy": accuracy,
+            "mapped": float((pos >= 0).mean()),
+            "exact": float((out["offset"] >= 0).mean()),
+            "n_checked": len(pick), "stages": stages, "idle": idle,
+            "busy_ms": busy_ms, "chunk_wall": wall}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -279,7 +473,9 @@ def main() -> int:
     from mgl_tpu_torch.kernels import pairhmm_cuda as ph
     from mgl_tpu_torch.kernels import seed_extend_cuda as se
     from mgl_tpu_torch.kernels import sw_cuda
+    from mgl_tpu_torch.kernels import window_cuda as wg
     from mgl_tpu_torch.ops.seed_extend import fast_scores_plain, stage_fast
+    from mgl_tpu_torch.pipelines import mapper as mp
     from mgl_tpu_torch.ops.sw import EZ_KEYS, banded_layout, compute_score_max
     from mgl_tpu_torch.ops.pairhmm import (compute_haplotype_similarities,
                                            normalize, pair_likelihoods,
@@ -304,7 +500,8 @@ def main() -> int:
                "sw_plane": sw_cuda.sw_plane,
                "sw_plane_scores": sw_cuda.sw_plane_scores,
                "pairhmm_plane_f32": ph.pairhmm_plane_f32,
-               "seed_extend_f32": se.seed_extend_f32}
+               "seed_extend_f32": se.seed_extend_f32,
+               "window_gather": wg.window_gather}
 
     def drive(fn):
         """(fn(), launches of each kernel during it, host seconds): the
@@ -518,6 +715,7 @@ def main() -> int:
     for label, rs, hs, ps in se_sets:
         err["seed_extend_f32"] = max(err["seed_extend_f32"], compare_seed_extend(
             stage_fast(rs, hs, ps, dev)))
+    err["window_gather"], gather_held = compare_gather(dev)
     log(f"[2 kernel==plain, tolerance 0 (bit for bit)] SW {len(targets)} "
         f"pairs 40-250 bp x 4 strategies: banded x 2 modes at the wrapper's "
         f"W and at W = {', '.join(map(str, sw_cuda.BANDED_WARPS))} warps a "
@@ -543,7 +741,9 @@ def main() -> int:
         f"equal, and on == off; carry rows (set, reads, stream slots, "
         f"placement) {placed}; seed-extend on "
         f"{', '.join(f'{lb} ({len(ps)} pairs)' for lb, _, _, ps in se_sets)}"
-        f": equal (NaN where plain has NaN)")
+        f": equal (NaN where plain has NaN); window gather at every nibble "
+        f"shift, the first and last words and at random ({gather_held}): "
+        f"equal")
 
     # ---- phase 3: SW golden through the entry point -----------------------
     sw_rows = load_golden("sw_golden.jsonl")
@@ -867,6 +1067,38 @@ def main() -> int:
         f"{sum(p for p, _ in d2h)} B, banded {sum(b for _, b in d2h)} B; "
         f"for {len(long_t)} x 8000x2000: plane {d2h_long[0]} B, banded "
         f"{d2h_long[1]} B")
+
+    # ---- phase 7b: the read mapper at a realistic size ---------------------
+    mapper = run_mapper(dev, drive)
+    map_n = mapper["launches"]
+    if min(map_n["window_gather"], map_n["sw_banded"]) < 1:
+        raise AssertionError(f"a kernel of the mapper path never launched: "
+                             f"{map_n}")
+    for k in kernels:
+        launches[k] += map_n[k]
+    st_txt = ", ".join(f"{k} {v:.4f} s" for k, v in
+                       sorted(mapper["stages"].items()))
+    idle_txt = ("not measured (no device events in the trace)"
+                if mapper["idle"] is None else
+                f"{mapper['idle']:.4f} (device busy {mapper['busy_ms']:.3f} "
+                f"ms of a {mapper['chunk_wall']:.4f} s warm chunk of "
+                f"{MAP_CHUNK})")
+    log(f"[7b mapper] {MAP_READS} reads of {MAP_READ_LEN} bp at 1% "
+        f"substitutions vs a simulated {MAP_REF_LEN / 1e6:.0f} Mbp reference "
+        f"(simulated in {mapper['t_sim']:.2f} s); index build (k = 16, native "
+        f"scan + radix sort, {mapper['n_kmers']} k-mers) {mapper['t_index']:.3f}"
+        f" s; map_reads_stream (chunks of {MAP_CHUNK}) + align_and_sort, "
+        f"cold, {mapper['t_cold']:.3f} s; launches {map_n} (window_gather "
+        f"{map_n['window_gather']}, sw_banded {map_n['sw_banded']}); mapped "
+        f"{mapper['mapped']:.4f}, true start in the window "
+        f"{mapper['accuracy']:.4f} (gate 0.99), exact tier "
+        f"{mapper['exact']:.4f}; {mapper['n_checked']} sampled non-exact "
+        f"scores equal to the plain gather + sw_banded_plain on the card; "
+        f"align_and_sort positions and scores equal to the stream's, keys "
+        f"ascending and equal to a stable NumPy argsort")
+    log(f"    mapper warm: {MAP_READS / mapper['t_warm']:.1f} reads/s "
+        f"({mapper['t_warm']:.4f} s for {MAP_READS} reads); stages {st_txt}; "
+        f"idle share {idle_txt}; card {card}")
 
     # ---- phase 8: kernel and plain times at the main path's shapes --------
     ms, plain_ms, bounds = {}, {}, {}
@@ -1234,6 +1466,43 @@ def main() -> int:
             f"{w} warps, {n_sh * w / sms:.1f} warps an SM; carry row in "
             f"{carry} memory; equal to plain; card {card}")
 
+    # the window gather at one mapper chunk: the first chunk's mapped reads
+    # and their windows, as map_reads_stream hands them to the kernel; the
+    # bound is the bytes it must move
+    m_out, m_wlen = mapper["out"], mapper["wlen"]
+    sel = np.nonzero(m_out["pos"][:MAP_CHUNK] >= 0)[0]
+    m_reads = mapper["reads"][sel]
+    m_oriented = np.where(m_out["strand"][sel, None] == 1,
+                          mp.revcomp(m_reads), m_reads)
+    m_words, m_blocked = mp._ref_device(mapper["index"], dev)
+    g_args = (m_words, tuple(torch.from_numpy(s).to(dev) for s in
+                             mp._split_starts(m_out["pos"][sel], m_blocked)),
+              torch.from_numpy(mp._pack_codes(m_oriented)).to(dev), m_wlen,
+              MAP_READ_LEN)
+    k_ms = cuda_ms(lambda: wg.window_gather(*g_args), 20)
+    p_ms = cuda_ms(lambda: wg.window_gather_plain(*g_args), 3)
+    got = wg.window_gather(*g_args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in
+               zip(got, wg.window_gather_plain(*g_args))):
+        raise AssertionError("window gather != plain at one mapper chunk")
+    g_bytes = wg.window_gather_bytes(len(sel), m_wlen, MAP_READ_LEN,
+                                     m_blocked)
+    bounds["window_gather"] = bound(
+        len(sel) * (m_wlen + MAP_READ_LEN) * GATHER_OPS_PER_BASE, "int32",
+        g_bytes)
+    ms["window_gather"], plain_ms["window_gather"] = k_ms, p_ms
+    regs = _build.kernel_resources("window_gather")
+    log(f"    window_gather {len(sel)} windows of {m_wlen} + reads of "
+        f"{MAP_READ_LEN} bp ({g_bytes} bytes to move): kernel {k_ms:.4f} ms "
+        f"= {g_bytes / k_ms / 1e6:.1f} GB/s; plain torch {p_ms:.3f} ms; bound "
+        f"{bounds['window_gather'][0]:.4f} ms ({bounds['window_gather'][1]});"
+        f" bound share {bounds['window_gather'][0] / k_ms:.3f}; equal to "
+        f"plain; registers and spills "
+        f"{[(r['registers'], r.get('spill_stores'), r.get('spill_loads')) for r in regs]}"
+        f"; card {card}")
+    del g_args, got
+
     if any(m == "jax" or m.startswith(("jax.", "mgl_tpu."))
            or m == "mgl_tpu" for m in sys.modules):
         raise AssertionError("the port's main path imported jax or mgl_tpu")
@@ -1255,14 +1524,17 @@ def main() -> int:
         # an XLA device function (a lax.scan), not a Pallas kernel
         "seed_extend_f32": ("mgl_tpu_torch/csrc/seed_extend.cu",
                             "mgl_tpu/ops/seed_extend.py:52"),
+        # the mapper's window gather, an XLA device function too
+        "window_gather": ("mgl_tpu_torch/csrc/window_gather.cu",
+                          "mgl_tpu/pipelines/mapper.py:757"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": err[name],
          "ms": ms[name], "plain_ms": plain_ms[name],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         # no PyTorch call computes a pair-HMM or SW recurrence, or the
-         # seed-extend scan
+         # no PyTorch call computes a pair-HMM or SW recurrence, the
+         # seed-extend scan or the whole window gather and unpack
          "library_ms": None}
         for name, (src, rep) in replaces.items()]}))
     print(json.dumps({"ok": True, "device": {

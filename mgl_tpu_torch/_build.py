@@ -3,7 +3,8 @@
 Every ``csrc/*.cu`` is compiled by its own ``nvcc``, all started
 together, and the objects are linked into one shared library with a plain
 C interface, loaded with ``ctypes``; every ``csrc/host/*.cpp`` (the host
-CIGAR decoder and ScoreMax scan) is compiled by ``g++`` into a second one.
+CIGAR decoder and ScoreMax scan, and the read mapper's seeding) is
+compiled by ``g++`` into a second one.
 Each goes to ``build/mgl_tpu_torch/`` at the root of the checkout
 (git-ignored) under a name that carries the hash of its sources and
 flags, so an edit to any source rebuilds it at its next use and an
@@ -11,7 +12,7 @@ unchanged tree reuses it.
 
 Nothing is compiled when this module is imported: :func:`load_library`
 builds at the first kernel launch, :func:`load_host_library` at the first
-CIGAR decode.
+CIGAR decode or index build.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_I64 = ctypes.c_int64
 # C entry points: name -> argument types (every pointer and the stream as
 # c_void_p, so none is cut to 32 bits)
 _ENTRIES = {
@@ -68,15 +70,23 @@ _ENTRIES = {
     "mgl_pairhmm_plane_f32": [_P] * 8 + [_I] * 6 + [_P] * 3,
     "mgl_pairhmm_plane_carry_in_shared": [_I] * 4,
     "mgl_seed_extend": [_P] * 8 + [_I] * 3 + [_P] * 2,
+    "mgl_window_gather": [_P] * 5 + [_I64] + [_I] * 4 + [_P] * 3,
 }
-_I64 = ctypes.c_int64
 _HOST_ENTRIES = {
     "cigar_decode_batch": [_I, _P, _I64, _I64, _P, _P, _I, _P, _P, _P, _P,
                            _P, _I, _P, _I],
     "cigar_decode_batch_banded": [_I, _P, _I64, _I64, _P, _P, _I, _P, _P, _P,
                                   _P, _P, _I, _P, _I, _I, _I, _I64],
     "score_max_batch": [_I, _P, _P, _I64, _I64, _P, _P] + [_P] * 6,
+    "kmer_scan_canonical": [_I64, _P, _I, _P, _P, _P],
+    "kmer_prefix_table": [_I64, _P, _I, _I64, _P],
+    "radix_sort_kmer_index": [_I64, _I, _P, _P, _P],
+    "map_seed_vote": [_I, _I, _P, _I, _I, _P, _P, _P, _I64, _P, _I, _I, _I64,
+                      _I] + [_P] * 4,
+    "exact_nm_batch": [_I, _I, _P, _P, _I64, _P, _P, _I],
 }
+# the host entries that return a value (the rest return void)
+_HOST_RESTYPES = {"kmer_scan_canonical": _I64}
 
 
 def sources() -> list[pathlib.Path]:
@@ -223,8 +233,8 @@ def load_library() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=1)
 def load_host_library() -> ctypes.CDLL:
-    """The host library (CIGAR decoder, ScoreMax), built with g++ first if
-    its sources changed.  Raises if it cannot be built or loaded: there is no
+    """The host library (CIGAR decoder, ScoreMax, the mapper's seeding),
+    built with g++ first if its sources changed.  Raises if it cannot be built or loaded: there is no
     Python fallback."""
     so = host_library_path()
     if not so.exists():
@@ -233,7 +243,10 @@ def load_host_library() -> ctypes.CDLL:
             raise RuntimeError("no C++ compiler (g++) to build the host "
                                "CIGAR decoder")
         _compile(compiler, HOST_FLAGS, host_sources(), so)
-    return _bind(so, _HOST_ENTRIES, None)
+    lib = _bind(so, _HOST_ENTRIES, None)
+    for name, restype in _HOST_RESTYPES.items():
+        getattr(lib, name).restype = restype
+    return lib
 
 
 def check_launch(lib: ctypes.CDLL, code: int, name: str) -> None:

@@ -56,7 +56,8 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name}: want {dtype} {tuple(shape)}, got "
                          f"{x.dtype} {tuple(x.shape)}")
     if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, planes on {device}")
+        raise ValueError(f"{name} is on {x.device}, the other inputs on "
+                         f"{device}")
 
 
 def _forward(entry: str, dtype: torch.dtype, planes, rchar, rslen, haps,

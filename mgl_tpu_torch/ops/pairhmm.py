@@ -274,9 +274,9 @@ def use_shared_kernel(read_lens: list[int], haps: list[np.ndarray]) -> bool:
     (ops/pairhmm.py:417-424), unchanged.  Per read-length bucket, shared
     mode sweeps the distinct-suffix stream plus a 31-step ramp per hap for
     every 128 reads; product mode sweeps a mean hap plus a band for every
-    128 pairs.  Shared mode needs at least two haps."""
+    128 pairs.  Shared mode needs at least two haps and a read."""
     n_h = len(haps)
-    if n_h < 2:
+    if n_h < 2 or not read_lens:
         return False
     positions, _, _ = compute_haplotype_similarities(haps)
     stream = sum(len(h) - int(p) for h, p in zip(haps, positions))
@@ -402,7 +402,11 @@ def compute_likelihoods(reads: list[dict], haps: list[np.ndarray],
     score identically against every read, so each is scored once.
     ``use_double`` scores every pair in f64 alone (the reference's
     all-double configuration); ``use_fast_path`` lets pairs whose
-    seed-extend score clears MIN_ACCEPTED take it and skip the DP."""
+    seed-extend score clears MIN_ACCEPTED take it and skip the DP.  An
+    empty product (no read or no hap) gives an empty matrix in every
+    mode, and launches nothing."""
+    if not reads or not haps:
+        return np.zeros((len(reads), len(haps)), np.float64)
     reads, haps = normalize(reads, haps)
     uniq, col = _dedup_haps(haps)
     haps = [haps[k] for k in uniq]
@@ -426,7 +430,11 @@ def dispatch_likelihoods(reads: list[dict], haps: list[np.ndarray],
     Batches outside shared mode (``use_double``, ``use_fast_path``, one
     hap, duplicate haps, or a product the work estimate prefers) complete
     synchronously here, as the JAX engine's (:705-712), and the closures
-    only hand back the result, identical to compute_likelihoods."""
+    only hand back the result, identical to compute_likelihoods; so does
+    an empty product."""
+    if not reads or not haps:
+        out = compute_likelihoods(reads, haps, device)
+        return lambda: (lambda: out)
     norm_reads, norm_haps = normalize(reads, haps)
     n_r, n_h = len(norm_reads), len(norm_haps)
     distinct = len({h.tobytes() for h in norm_haps}) == n_h

@@ -1,8 +1,10 @@
 """Fixtures and checks shared by the port's tests, ``chip_smoke.py`` and
 ``mgl_tpu_torch.profile_e2e``: seeded SW pairs and GATK-shaped PairHMM
 regions, hap sets for the shared kernel's edges, the seed-extend
-scorer's edge pairs, golden rows, tensor packers, traceback comparisons
-of both layouts and CUDA-event timers.
+scorer's edge pairs, simulated references and reads for the mapper and
+the window starts that reach every edge of its gather, golden rows,
+tensor packers, traceback comparisons of both layouts and CUDA-event
+timers.
 Nothing on the main path imports this module.
 """
 
@@ -353,6 +355,40 @@ def plane_outputs(mode: int, n: int, t: int, q: int, dev):
         return tuple(torch.zeros((n, t + q - 1), dtype=torch.int32,
                                  device=dev) for _ in range(2))
     return (torch.empty((n,), dtype=torch.int32, device=dev),)
+
+
+def simulate_reads(seed: int, ref_len: int, n_reads: int, read_len: int,
+                   err: float = 0.01
+                   ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(ref, reads, true_pos): a uniform random ACGT reference and reads
+    drawn from it with substitutions at rate ``err`` (the logic of
+    ``tools/run_scale_configs.py:31 simulate``, BASELINE config 4's
+    workload).  The reference is drawn as uint8 indices, 2 B a base at
+    its peak."""
+    rng = np.random.default_rng(seed)
+    ref = ACGT[rng.integers(0, 4, size=ref_len, dtype=np.uint8)]
+    true_pos = rng.integers(0, ref_len - read_len, size=n_reads)
+    reads = ref[true_pos[:, None] + np.arange(read_len)[None, :]].copy()
+    mut = rng.random(reads.shape) < err
+    reads[mut] = ACGT[(np.searchsorted(ACGT, reads[mut])
+                       + rng.integers(1, 4, int(mut.sum()))) % 4]
+    return ref, reads, true_pos
+
+
+def window_starts(seed: int, ref_len: int, wlen: int, n_random: int
+                  ) -> np.ndarray:
+    """int64 window starts that reach every edge of the mapper's gather:
+    all eight nibble shifts in the first words, the last eight valid
+    starts, starts in the reference's last word (their windows run into
+    the pad words), and ``n_random`` starts anywhere up to the last
+    valid one."""
+    rng = np.random.default_rng(seed)
+    last = ref_len - wlen
+    tail = (ref_len - 1) // 8 * 8
+    return np.concatenate([
+        np.arange(16), np.arange(last - 7, last + 1),
+        np.arange(tail, ref_len),
+        rng.integers(0, last + 1, n_random)]).astype(np.int64)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
