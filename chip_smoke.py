@@ -4,7 +4,7 @@
     python3 chip_smoke.py        # from the root of a checkout, one card
 
 The quickest proof that the port still starts on the card.  It builds the
-nine CUDA kernels (seven sources) from ``mgl_tpu_torch/csrc``, one nvcc
+ten CUDA kernels (eight sources) from ``mgl_tpu_torch/csrc``, one nvcc
 each, all started together, and the host library (the CIGAR decoder and
 the mapper's seeding) from ``csrc/host``, holds each kernel against its
 plain torch version on the card, runs the goldens through both GATK
@@ -20,7 +20,9 @@ plane path, the second design of both recurrences
 ``pairhmm_cuda.forward_scores_plane``), against the goldens and the
 banded kernels; then the read mapper (``map_reads_stream``) and
 ``align_and_sort`` on a 64 Mbp reference, through the window gather and
-the banded SW kernel in score mode.  Phases:
+the banded SW kernel in score mode; then the mapper in CIGAR mode, through
+the banded SW kernel in traceback mode and the CIGAR walk kernel; then the
+``mgl-map`` CLI.  Phases:
 
 0. environment (card, power limit, CUDA, nvcc, the port's host library);
 1. build of the kernels;
@@ -30,7 +32,9 @@ the banded SW kernel in score mode.  Phases:
    every W and rows a lane R, with the carry row in shared and in global
    memory; the seed-extend kernel on the golden rows, a region's product
    and its edge pairs; the window gather at every nibble shift and both
-   reference edges, flat and blocked, odd and even read lengths);
+   reference edges, flat and blocked, odd and even read lengths; the CIGAR
+   walk in all four strategies, across its SEG_CAP with overflowed pairs,
+   on pairs with zero starts and on a chunk of 8,192 windows);
 3. all SW golden cases, CIGAR and offset exact;
 4. PairHMM known answers and golden rows through the cascade, and
    through ``use_double`` and ``fast_path``;
@@ -47,13 +51,19 @@ the banded SW kernel in score mode.  Phases:
    counts, window accuracy, sampled scores against the plain path on the
    card, the sort against NumPy, warm reads/s, the host stages and the
    card's idle share over a warm chunk;
+7c. the mapper in CIGAR mode at a realistic size (see
+   :func:`run_cigar_mapper`): launch counts, the tier split, every CIGAR
+   of the traceback tier against the plain path on the card, warm
+   reads/s, the host stages and the idle share of a warm chunk;
+7d. ``python -m mgl_tpu_torch.cli`` on the card in both modes;
 8. kernel and plain times at the main path's shapes, with bounds, and
    the pipelined kernels' W sweeps (registers and spills, warps an SM,
    carry placement); the plane SW kernel also into preallocated outputs,
    apart from its wrapper's zero fill; the plane PairHMM kernel beside
    the banded f32 kernel on the same pairs, with its R x W sweep; the
    seed-extend kernel and the f64 per-pair kernel at a region's 6,144
-   pairs; the window gather at one mapper chunk.
+   pairs; the window gather at one mapper chunk; the CIGAR walk at one
+   traceback chunk of 8,192 windows, with the post-pass's host time.
 
 Any failed phase raises and the script exits non-zero.  The last line is
 one JSON object naming the device; the line before it lists the kernels
@@ -457,6 +467,309 @@ def run_mapper(dev, drive, ref_len: int = MAP_REF_LEN,
             "busy_ms": busy_ms, "chunk_wall": wall}
 
 
+# the CIGAR walk, counted as what the function needs: a step is one
+# word's address (the band and word of the cell, ~6 ops), its nibble
+# (shift and mask, 3), the automaton's next state and moves (~6), the
+# run-length compare and the position update (~5)
+WALK_OPS_PER_STEP = 20
+# the CIGAR mapper phase: config4_cigar's error model
+# (tools/run_scale_configs.py:117): 1% substitutions, 2% of the reads with
+# a 1-2 bp deletion after read position 70
+MAP_DEL_FRAC = 0.02
+WALK_CHUNK = 8192          # sw_cigar_windows' chunk
+
+
+def walk_steps(segs, tail, over, I0, J0) -> int:
+    """Cells the walk visited, from its outputs: the lengths of its pushed
+    segments and the run in flight; a pair that overflowed lost segments,
+    so it counts max(I0 - I, J0 - J), which the walk cannot undercut."""
+    import torch
+
+    nseg = tail[:, 0].long()
+    k = torch.arange(segs.shape[1], device=segs.device)
+    pushed = ((segs >> 2) * (k[None, :] < nseg[:, None])).sum(1)
+    exact = pushed + tail[:, 2]
+    floor = torch.maximum(I0 - tail[:, 3], J0 - tail[:, 4])
+    return int(torch.where(over, floor, exact).sum())
+
+
+def compare_walk(dev) -> tuple[float, str]:
+    """The CIGAR walk kernel vs its plain version on the card, bit for bit,
+    on traceback words of the banded SW kernel: the 96 reads of
+    ``testing.indel_read_set`` and the deletion sweep across SEG_CAP
+    (``deletion_sweep_set``, overflowed pairs present) in all four
+    strategies, pairs whose start has I or J at 0, and one full chunk of
+    8,192 windows of 198 x 150 (reads at 1% substitutions, 2% with a
+    deletion, against a 4 Mbp reference).  Raises on a difference;
+    returns (0.0, what was held)."""
+    import numpy as np
+    import torch
+
+    from mgl_tpu_torch.core.params import OverhangStrategy, SWParameters
+    from mgl_tpu_torch.kernels.cigar_walk_cuda import cigar_walk
+    from mgl_tpu_torch.ops.cigar_device import cigar_walk_plain
+    from mgl_tpu_torch.pipelines import mapper as mp
+    from mgl_tpu_torch.testing import (ACGT, deletion_reads,
+                                       deletion_sweep_set, indel_read_set)
+
+    params = SWParameters(*SW_PARAMS)
+    rng = np.random.default_rng(43)
+    ref = ACGT[rng.integers(0, 4, 4_000_000, dtype=np.uint8)]
+    reads, true_pos, _ = deletion_reads(44, ref, WALK_CHUNK, MAP_READ_LEN)
+    wlen = MAP_READ_LEN + 48
+    chunk_set = (ref, np.clip(true_pos - 24, 0, len(ref) - wlen), reads,
+                 wlen)
+    held = []
+    for label, (r, starts, rd, wl) in (("indel", indel_read_set()),
+                                        ("SEG_CAP sweep",
+                                         deletion_sweep_set()),
+                                        ("8,192-window chunk", chunk_set)):
+        index = mp.ReferenceIndex.build(r, k=16)
+        n_over = {}
+        for s in OverhangStrategy:
+            ez, words, wpb = mp._sw_traceback_windows(index, starts, rd, wl,
+                                                      params, s, dev)
+            full = lambda v: torch.full((len(rd),), v, dtype=torch.int32,
+                                        device=dev)
+            args = (words, ez, full(wl), full(rd.shape[1]))
+            n_steps = wl + rd.shape[1]
+            got = cigar_walk(*args, s, n_steps, words_per_band=wpb)
+            torch.cuda.synchronize()
+            want = cigar_walk_plain(*args, strategy=int(s), n_steps=n_steps,
+                                    words_per_band=wpb)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"CIGAR walk != plain ({label}, "
+                                     f"{s.name})")
+            n_over[s.name] = int(got[2].sum())
+            if label == "indel" and s == OverhangStrategy.SOFTCLIP:
+                first8 = (words[:8].clone(), ez[:, :8].clone(),
+                          args[2][:8].clone(), args[3][:8].clone(), wpb,
+                          n_steps)
+        if label == "SEG_CAP sweep" and not n_over["SOFTCLIP"]:
+            raise AssertionError("CIGAR walk: the SEG_CAP sweep overflowed "
+                                 "no pair")
+        held.append(f"{label} {len(rd)} pairs (overflowed {n_over})")
+    # pairs 0-2 start at I = 0, J = 0 or both (SOFTCLIP reads max_t,
+    # max_q); pairs 3-4 at tlen = 0 or qlen = 0 (INDEL)
+    words, ez, tl, ql, wpb, n_steps = first8
+    ez[3, 0] = 0
+    ez[4, 1] = 0
+    ez[3:5, 2] = 0
+    tl[3] = 0
+    ql[4] = 0
+    for s in (OverhangStrategy.SOFTCLIP, OverhangStrategy.INDEL):
+        got = cigar_walk(words, ez, tl, ql, s, n_steps, words_per_band=wpb)
+        want = cigar_walk_plain(words, ez, tl, ql, strategy=int(s),
+                                n_steps=n_steps, words_per_band=wpb)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"CIGAR walk != plain (zero starts, "
+                                 f"{s.name})")
+    held.append("8 pairs with zero starts")
+    return 0.0, "; ".join(held)
+
+
+def run_cigar_mapper(dev, drive, index, n_reads: int = MAP_READS,
+                     chunk: int = MAP_CHUNK, read_len: int = MAP_READ_LEN,
+                     n_check: int = 1024) -> dict:
+    """Phase 7c: the read mapper in CIGAR mode at a realistic size, through
+    ``map_reads_stream(with_cigar=True)`` on ``dev``.
+
+    The workload is ``tools/run_scale_configs.py:117 config4_cigar``'s:
+    262,144 reads of 150 bp at 1% substitutions, 2% of them (spread over
+    the batch) with a 1-2 bp deletion after read position 70, chunks of
+    131,072.  The cut: the reads are drawn from phase 7b's 64 Mbp
+    reference and mapped with its index, not a second one built from
+    config4_cigar's seed.
+
+    ``drive`` runs the main path with the launch counts set to 0 just
+    before and read just after.  Checks: every mapped read has a CIGAR,
+    every mapped deletion read's CIGAR has a D; the traceback tier
+    (recomputed from the certification rule, its size equal to
+    ``map.tb_reads``) gets the CIGARs and offsets of the plain path on the
+    card - the plain gather, ``sw_banded_plain`` in traceback mode,
+    ``cigar_walk_plain``, ``finish_cigars`` and the host decoder for
+    overflowed walks - and ``n_check`` sampled tier reads those of the
+    host decoder on the kernels' own words.  Then a warm pass with the
+    ``map.*`` stage times, and the idle share over one warm chunk."""
+    import numpy as np
+    import torch
+
+    from mgl_tpu_torch.core.params import OverhangStrategy, SWParameters
+    from mgl_tpu_torch.kernels.sw_cuda import sw_banded_plain
+    from mgl_tpu_torch.kernels.window_cuda import window_gather_plain
+    from mgl_tpu_torch.native import cigar_decode_bulk_banded
+    from mgl_tpu_torch.ops.cigar_device import cigar_walk_plain, finish_cigars
+    from mgl_tpu_torch.ops.sw import BAND, EZ_KEYS, banded_layout
+    from mgl_tpu_torch.pipelines import mapper as mp
+    from mgl_tpu_torch.profile_e2e import _tally
+    from mgl_tpu_torch.testing import deletion_reads
+    from mgl_tpu_torch.utils.metrics import METRICS
+
+    soft = OverhangStrategy.SOFTCLIP
+    params = SWParameters(*SW_PARAMS)
+    L = read_len
+    t0 = time.perf_counter()
+    reads, _, del_idx = deletion_reads(4, index.ref, n_reads, L,
+                                       del_frac=MAP_DEL_FRAC)
+    t_sim = time.perf_counter() - t0
+
+    def main_path():
+        out = mp.map_reads_stream(index, reads, chunk=chunk, with_cigar=True,
+                                  device=dev)
+        torch.cuda.synchronize()
+        return out
+
+    METRICS.reset()
+    out, launches, t_cold = drive(main_path)
+    n_tb = int(METRICS.snapshot()["counters"].get("map.tb_reads", 0))
+    pos, pad = out["pos"], out["window_pad"]
+    wlen = L + 2 * pad
+    mapped = np.nonzero(pos >= 0)[0]
+    if not all(out["cigar"][mapped]):
+        raise AssertionError("CIGAR mapper: a mapped read has no CIGAR")
+    no_d = [int(i) for i in del_idx if pos[i] >= 0 and "D" not in
+            out["cigar"][i]]
+    if no_d:
+        raise AssertionError(f"CIGAR mapper: {len(no_d)} mapped deletion "
+                             f"reads without a D, e.g. "
+                             f"{[(i, out['cigar'][i]) for i in no_d[:3]]}")
+    oriented = lambda idx: np.where(out["strand"][idx, None] == 1,
+                                    mp.revcomp(reads[idx]), reads[idx])
+    # the tiers, by the stream's own rules: exact (the best score), then
+    # the certified diagonal where the window is surely not edge-clipped
+    start = pos[mapped]
+    nm = mp._nm_at(index.ref, start + pad, oriented(mapped))
+    diag = (L - nm) * params.match + nm * params.mismatch
+    inner = (start > 0) & (start < len(index.ref) - wlen)
+    exact = out["score"][mapped] == L * params.match
+    cert = ~exact & inner & (out["score"][mapped] == diag)
+    tier = mapped[~exact & ~cert]
+    if len(tier) != n_tb:
+        raise AssertionError(f"CIGAR mapper: {len(tier)} reads outside the "
+                             f"exact and certified tiers, map.tb_reads "
+                             f"{n_tb}")
+    # the traceback tier against the plain path on the card
+    words_dev, blocked = mp._ref_device(index, dev)
+    wpb = banded_layout(wlen, L)[1]
+    plain, n_over = [], 0
+    t0 = time.perf_counter()
+    for lo in range(0, len(tier), WALK_CHUNK):
+        idx = tier[lo: lo + WALK_CHUNK]
+        full = lambda v: torch.full((len(idx),), v, dtype=torch.int32,
+                                    device=dev)
+        tgt, qry = window_gather_plain(
+            words_dev, tuple(torch.from_numpy(x).to(dev) for x in
+                             mp._split_starts(pos[idx], blocked)),
+            torch.from_numpy(mp._pack_codes(oriented(idx))).to(dev), wlen, L)
+        ez, words = sw_banded_plain(tgt, qry, full(wlen), full(L),
+                                    *SW_PARAMS, indel_init=False,
+                                    with_traceback=True)
+        segs, tail, over = cigar_walk_plain(
+            words, ez, full(wlen), full(L), strategy=int(soft),
+            n_steps=wlen + L, words_per_band=wpb)
+        res = finish_cigars(segs.cpu().numpy(), tail.cpu().numpy(),
+                            {"seg_length": ez[5].cpu().numpy()},
+                            np.full(len(idx), wlen), np.full(len(idx), L),
+                            soft, len(idx))
+        over = over.cpu().numpy()
+        n_over += int(over.sum())
+        plain.extend(mp.decode_overflow(
+            [None if o else r for r, o in zip(res, over)], words, ez, wlen,
+            L, soft, wpb))
+    t_plain = time.perf_counter() - t0
+    got = list(zip(out["cigar"][tier], out["offset"][tier]))
+    bad = [k for k, (a, b) in enumerate(zip(got, plain)) if a != b]
+    if bad:
+        raise AssertionError(f"CIGAR mapper: {len(bad)} of {len(tier)} "
+                             f"traceback-tier reads differ from the plain "
+                             f"path, e.g. {[(got[k], plain[k]) for k in bad[:3]]}")
+    # sampled tier reads: the host decoder on the kernels' own words
+    pick = np.sort(np.random.default_rng(2).choice(
+        tier, min(n_check, len(tier)), replace=False))
+    ez, words, _ = mp._sw_traceback_windows(index, pos[pick], oriented(pick),
+                                            wlen, params, soft, dev)
+    host = cigar_decode_bulk_banded(
+        words.cpu().numpy().view(np.uint32),
+        dict(zip(EZ_KEYS, ez.cpu().numpy().astype(np.int64))),
+        np.full(len(pick), wlen, np.int32), np.full(len(pick), L, np.int32),
+        int(soft), BAND, wpb)
+    if host != list(zip(out["cigar"][pick], out["offset"][pick])):
+        raise AssertionError("CIGAR mapper: sampled tier reads differ from "
+                             "the host decoder on the kernels' words")
+    # warm: the whole stream, then one chunk under the profiler
+    METRICS.reset()
+    t0 = time.perf_counter()
+    mp.map_reads_stream(index, reads, chunk=chunk, with_cigar=True,
+                        device=dev)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    snap = METRICS.snapshot()
+    stages = {k: v for k, v in snap["timers_s"].items()
+              if k.startswith("map.")}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        mp.map_reads_stream(index, reads[:chunk], chunk=chunk,
+                            with_cigar=True, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = _tally(prof)[2]
+    idle = busy_ms = None
+    if busy is not None:
+        busy_ms, idle = busy / 1e3, 1.0 - busy / 1e6 / wall
+    return {"launches": launches, "t_sim": t_sim, "t_cold": t_cold,
+            "t_warm": t_warm, "mapped": len(mapped), "exact": int(exact.sum()),
+            "certified": int(cert.sum()), "tier": tier,
+            "cert_idx": mapped[cert], "n_over": n_over,
+            "n_del": len(del_idx), "t_plain": t_plain, "n_check": len(pick),
+            "reads": reads, "out": out, "wlen": wlen, "stages": stages,
+            "tb_warm": int(snap["counters"].get("map.tb_reads", 0)),
+            "idle": idle, "busy_ms": busy_ms, "chunk_wall": wall,
+            "oriented": oriented}
+
+
+def run_cli() -> str:
+    """The CLI phase: ``python -m mgl_tpu_torch.cli`` on the card in a
+    temporary directory, on ``testing.write_map_inputs``' two contigs and
+    40 reads, in score mode and with ``--cigar``.  Checks the SAM's 40
+    records, that most reads map, and in ``--cigar`` mode that no mapped
+    record has a ``*`` CIGAR.  Returns what it held."""
+    import os
+    import tempfile
+
+    from mgl_tpu_torch.testing import write_map_inputs
+
+    held = []
+    with tempfile.TemporaryDirectory() as tmp:
+        fa, fq = write_map_inputs(tmp, 5)
+        for mode in ("score", "cigar"):
+            sam = pathlib.Path(tmp) / f"{mode}.sam"
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "mgl_tpu_torch.cli", str(fa), str(fq),
+                 str(sam), "--device", "cuda",
+                 *(["--cigar"] if mode == "cigar" else [])],
+                cwd=ROOT, capture_output=True, text=True, timeout=300,
+                env={**os.environ, "PYTHONPATH": str(ROOT)})
+            if proc.returncode:
+                raise RuntimeError(f"CLI ({mode}) exit {proc.returncode}:\n"
+                                   f"{proc.stdout}\n{proc.stderr}")
+            rows = [ln.split("\t") for ln in sam.read_text().splitlines()
+                    if not ln.startswith("@")]
+            mapped = [r for r in rows if not int(r[1]) & 0x4]
+            stars = sum(r[5] == "*" for r in mapped)
+            if len(rows) != 40 or len(mapped) < 30 or (mode == "cigar"
+                                                        and stars):
+                raise AssertionError(f"CLI ({mode}): {len(rows)} records, "
+                                     f"{len(mapped)} mapped, {stars} mapped "
+                                     f"with a '*' CIGAR")
+            held.append(f"{mode}: {len(rows)} records, {len(mapped)} mapped,"
+                        f" {stars} '*' CIGARs among them, "
+                        f"{time.perf_counter() - t0:.2f} s")
+    return "; ".join(held)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -473,6 +786,7 @@ def main() -> int:
     from mgl_tpu_torch.kernels import pairhmm_cuda as ph
     from mgl_tpu_torch.kernels import seed_extend_cuda as se
     from mgl_tpu_torch.kernels import sw_cuda
+    from mgl_tpu_torch.kernels import cigar_walk_cuda as cw
     from mgl_tpu_torch.kernels import window_cuda as wg
     from mgl_tpu_torch.ops.seed_extend import fast_scores_plain, stage_fast
     from mgl_tpu_torch.pipelines import mapper as mp
@@ -501,7 +815,8 @@ def main() -> int:
                "sw_plane_scores": sw_cuda.sw_plane_scores,
                "pairhmm_plane_f32": ph.pairhmm_plane_f32,
                "seed_extend_f32": se.seed_extend_f32,
-               "window_gather": wg.window_gather}
+               "window_gather": wg.window_gather,
+               "cigar_walk": cw.cigar_walk}
 
     def drive(fn):
         """(fn(), launches of each kernel during it, host seconds): the
@@ -716,6 +1031,7 @@ def main() -> int:
         err["seed_extend_f32"] = max(err["seed_extend_f32"], compare_seed_extend(
             stage_fast(rs, hs, ps, dev)))
     err["window_gather"], gather_held = compare_gather(dev)
+    err["cigar_walk"], walk_held = compare_walk(dev)
     log(f"[2 kernel==plain, tolerance 0 (bit for bit)] SW {len(targets)} "
         f"pairs 40-250 bp x 4 strategies: banded x 2 modes at the wrapper's "
         f"W and at W = {', '.join(map(str, sw_cuda.BANDED_WARPS))} warps a "
@@ -743,7 +1059,8 @@ def main() -> int:
         f"{', '.join(f'{lb} ({len(ps)} pairs)' for lb, _, _, ps in se_sets)}"
         f": equal (NaN where plain has NaN); window gather at every nibble "
         f"shift, the first and last words and at random ({gather_held}): "
-        f"equal")
+        f"equal; CIGAR walk on the banded kernel's words in all four "
+        f"strategies ({walk_held}): segs, tail and over equal")
 
     # ---- phase 3: SW golden through the entry point -----------------------
     sw_rows = load_golden("sw_golden.jsonl")
@@ -1099,6 +1416,44 @@ def main() -> int:
     log(f"    mapper warm: {MAP_READS / mapper['t_warm']:.1f} reads/s "
         f"({mapper['t_warm']:.4f} s for {MAP_READS} reads); stages {st_txt}; "
         f"idle share {idle_txt}; card {card}")
+
+    # ---- phase 7c: the read mapper in CIGAR mode at a realistic size -------
+    cig = run_cigar_mapper(dev, drive, mapper["index"])
+    cig_n = cig["launches"]
+    if min(cig_n["window_gather"], cig_n["sw_banded"],
+           cig_n["cigar_walk"]) < 1:
+        raise AssertionError(f"a kernel of the CIGAR mapper path never "
+                             f"launched: {cig_n}")
+    for k in kernels:
+        launches[k] += cig_n[k]
+    n_tier = len(cig["tier"])
+    st_txt = ", ".join(f"{k} {v:.4f} s" for k, v in
+                       sorted(cig["stages"].items()))
+    idle_txt = ("not measured (no device events in the trace)"
+                if cig["idle"] is None else
+                f"{cig['idle']:.4f} (device busy {cig['busy_ms']:.3f} ms of a "
+                f"{cig['chunk_wall']:.4f} s warm chunk of {MAP_CHUNK})")
+    log(f"[7c CIGAR mapper] {MAP_READS} reads of {MAP_READ_LEN} bp at 1% "
+        f"substitutions, {cig['n_del']} ({MAP_DEL_FRAC:.0%}) with a 1-2 bp "
+        f"deletion after base 70, drawn from phase 7b's reference (simulated "
+        f"in {cig['t_sim']:.2f} s) and mapped with its index; "
+        f"map_reads_stream(with_cigar=True) (chunks of {MAP_CHUNK}), cold, "
+        f"{cig['t_cold']:.3f} s; launches {cig_n}; mapped {cig['mapped']}: "
+        f"exact {cig['exact']}, certified {cig['certified']}, traceback tier "
+        f"{n_tier} (= map.tb_reads; {n_tier / cig['mapped']:.4f} of mapped, "
+        f"{cig['n_over']} overflowed the walk's SEG_CAP); every mapped read "
+        f"has a CIGAR, every mapped deletion read a D; the tier's CIGARs and "
+        f"offsets equal the plain path's on the card (plain gather, "
+        f"sw_banded_plain traceback, cigar_walk_plain, finish_cigars, host "
+        f"decoder; {cig['t_plain']:.2f} s) and {cig['n_check']} sampled "
+        f"ones the host decoder's on the kernels' words")
+    log(f"    CIGAR mapper warm: {MAP_READS / cig['t_warm']:.1f} reads/s "
+        f"({cig['t_warm']:.4f} s for {MAP_READS} reads, {cig['tb_warm']} "
+        f"traceback reads); stages {st_txt}; idle share {idle_txt}; card "
+        f"{card}")
+
+    # ---- phase 7d: the CLI on the card -------------------------------------
+    log(f"[7d CLI] python -m mgl_tpu_torch.cli --device cuda: {run_cli()}")
 
     # ---- phase 8: kernel and plain times at the main path's shapes --------
     ms, plain_ms, bounds = {}, {}, {}
@@ -1503,6 +1858,112 @@ def main() -> int:
         f"; card {card}")
     del g_args, got
 
+    # the CIGAR walk at one traceback chunk of 8,192 windows: phase 7c's
+    # traceback-tier reads (~2% of 262,144, so under a chunk) and certified
+    # reads after them, through the gather and sw_banded in traceback mode
+    # as sw_cigar_windows runs them; then the post-pass's host time at that
+    # chunk split into the walk (launch to sync), the fetch of its small
+    # outputs and finish_cigars, and the bytes fetched
+    from mgl_tpu_torch.kernels.cigar_walk_cuda import walk_bytes
+    from mgl_tpu_torch.kernels.pairhmm_cuda import to_host
+    from mgl_tpu_torch.ops.cigar_device import (SEG_CAP, cigar_walk_plain,
+                                                finish_cigars, walk_start)
+
+    soft = OverhangStrategy.SOFTCLIP
+    t_idx = np.concatenate([cig["tier"], cig["cert_idx"]])[:WALK_CHUNK]
+    c_out, c_wlen = cig["out"], cig["wlen"]
+    c_ez, c_words, c_wpb = mp._sw_traceback_windows(
+        mapper["index"], c_out["pos"][t_idx], cig["oriented"](t_idx), c_wlen,
+        SWParameters(*SW_PARAMS), soft, dev)
+    nb = len(t_idx)
+    full = lambda v: torch.full((nb,), v, dtype=torch.int32, device=dev)
+    w_args = (c_words, c_ez, full(c_wlen), full(MAP_READ_LEN))
+    n_steps = c_wlen + MAP_READ_LEN
+    run = lambda: cw.cigar_walk(*w_args, soft, n_steps, words_per_band=c_wpb)
+    run_p = lambda: cigar_walk_plain(*w_args, strategy=int(soft),
+                                     n_steps=n_steps, words_per_band=c_wpb)
+    k_ms = cuda_ms(run, 20)
+    p_ms = cuda_ms(run_p, 2)
+    got, want = run(), run_p()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("CIGAR walk != plain at one traceback chunk")
+    I0, J0 = walk_start(c_ez, *w_args[2:], int(soft))
+    steps = walk_steps(*got, I0, J0)
+    w_bytes = walk_bytes(steps, nb)
+    bounds["cigar_walk"] = bound(steps * WALK_OPS_PER_STEP, "int32", w_bytes)
+    ms["cigar_walk"], plain_ms["cigar_walk"] = k_ms, p_ms
+    split = {"walk": [], "fetch": [], "finish_cigars": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        segs, tail, over = run()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host = to_host(torch.cat([segs, tail, c_ez[5][:, None],
+                                  over[:, None].to(torch.int32)], dim=1))()
+        t2 = time.perf_counter()
+        finish_cigars(host[:, :SEG_CAP], host[:, SEG_CAP:SEG_CAP + 5],
+                      {"seg_length": host[:, SEG_CAP + 5]},
+                      np.full(nb, c_wlen), np.full(nb, MAP_READ_LEN), soft,
+                      nb)
+        t3 = time.perf_counter()
+        for k, v in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+            split[k].append(round(v * 1e3, 3))
+    regs = _build.kernel_resources("cigar_walk")
+    log(f"    cigar_walk {nb} traceback windows of {c_wlen} x "
+        f"{MAP_READ_LEN} ({min(n_tier, nb)} tier reads, the rest "
+        f"certified; {steps} steps walked, {int(got[2].sum())} "
+        f"overflowed; {w_bytes} bytes to move): kernel {k_ms:.4f} ms; plain "
+        f"torch {p_ms:.3f} ms; bound {bounds['cigar_walk'][0]:.5f} ms "
+        f"({bounds['cigar_walk'][1]}); bound share "
+        f"{bounds['cigar_walk'][0] / k_ms:.4f}; equal to plain; registers "
+        f"and spills "
+        f"{[(r['registers'], r.get('spill_stores'), r.get('spill_loads')) for r in regs]}"
+        f"; card {card}")
+    log(f"    traceback post-pass at that chunk, host ms of 3 runs: {split};"
+        f" fetched {host.nbytes // nb} B a pair ({host.nbytes} B) against "
+        f"{c_words[0].numel() * 4} B of traceback words a pair "
+        f"({c_words.numel() * 4} B); card {card}")
+    del c_ez, c_words, w_args, got, want
+
+    # B4 on one card: parallel/sort.py's stable torch.sort of the keys as
+    # int64 and the payload's gather, on the card (CUDA events) and
+    # through sort_records_single from host arrays to host arrays (host
+    # clock), at the smoke's 262,144 keys and at 10M; the bound reads
+    # each key (8 B) and payload (4 B) once and writes them once
+    from mgl_tpu_torch.parallel.sort import sort_records_single
+
+    sort_txt = []
+    for n in (MAP_READS, 10_000_000):
+        rng = np.random.default_rng(n)
+        keys_h = rng.integers(0, 2**64 - 1, n, dtype=np.uint64)
+        vals_h = np.arange(n, dtype=np.int32)
+        keys_d = torch.from_numpy(keys_h.view(np.int64)).to(dev)
+        vals_d = torch.from_numpy(vals_h).to(dev)
+
+        def device_sort():
+            sk, order = torch.sort(keys_d, stable=True)
+            return sk, vals_d[order]
+
+        d_ms = cuda_ms(device_sort, 10)
+        sort_records_single(keys_h, vals_h, device=dev)
+        t0 = time.perf_counter()
+        sk, sv = sort_records_single(keys_h, vals_h, device=dev)
+        h_ms = (time.perf_counter() - t0) * 1e3
+        order = np.argsort(keys_h, kind="stable")
+        if not (np.array_equal(sk, keys_h[order])
+                and np.array_equal(sv, vals_h[order])):
+            raise AssertionError(f"sort_records_single != NumPy at {n} keys")
+        b_ms = bound(0, "int32", 24 * n)[0]
+        sort_txt.append(f"{n} keys: device {d_ms:.4f} ms "
+                        f"({n / d_ms / 1e3:.1f} Mkeys/s), host to host "
+                        f"{h_ms:.3f} ms ({n / h_ms / 1e3:.1f} Mkeys/s), bound "
+                        f"{b_ms:.5f} ms (bytes, {24 * n} B), share "
+                        f"{b_ms / d_ms:.4f}")
+        del keys_d, vals_d
+    log(f"    sort_records_single (torch.sort, stable, + payload gather): "
+        f"{'; '.join(sort_txt)}; equal to a stable NumPy argsort; card {card}")
+
     if any(m == "jax" or m.startswith(("jax.", "mgl_tpu."))
            or m == "mgl_tpu" for m in sys.modules):
         raise AssertionError("the port's main path imported jax or mgl_tpu")
@@ -1527,6 +1988,9 @@ def main() -> int:
         # the mapper's window gather, an XLA device function too
         "window_gather": ("mgl_tpu_torch/csrc/window_gather.cu",
                           "mgl_tpu/pipelines/mapper.py:757"),
+        # the mapper's CIGAR walk, an XLA device function (a lax.scan)
+        "cigar_walk": ("mgl_tpu_torch/csrc/cigar_walk.cu",
+                       "mgl_tpu/ops/cigar_device.py:47"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -1534,7 +1998,8 @@ def main() -> int:
          "ms": ms[name], "plain_ms": plain_ms[name],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          # no PyTorch call computes a pair-HMM or SW recurrence, the
-         # seed-extend scan or the whole window gather and unpack
+         # seed-extend scan, the whole window gather and unpack or the
+         # CIGAR walk
          "library_ms": None}
         for name, (src, rep) in replaces.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Seed-and-extend read mapper (BASELINE.json config 4), score mode.
+"""Seed-and-extend read mapper (BASELINE.json config 4): score and CIGAR
+mode.
 
 The port of ``mgl_tpu/pipelines/mapper.py``: map reads to a reference
 sequence, on the card unless the caller asks for ``device="cpu"``.
@@ -16,15 +17,17 @@ Stages:
    counterpart of the XLA gather at mapper.py:757) cuts each read's window
    there and feeds the banded SW kernel (``csrc/sw_banded.cu``) in
    score-only mode.  On ``device="cpu"`` their plain torch versions run.
+4. **CIGARs** (``with_cigar=True``): a read whose kernel score equals its
+   seeded diagonal's score is certified "<L>M"; the rest go through
+   :func:`sw_cigar_windows` - the gather, ``sw_banded`` in traceback mode,
+   the device CIGAR walk (``csrc/cigar_walk.cu``, counterpart of
+   ``mgl_tpu/ops/cigar_device.py:47``) and the host's strategy tail, with
+   the host decoder for walks that overflow their segment buffer.
 
 Each native host function keeps its NumPy path beside it
 (``_index_rows_numpy``, ``_prefix_table_numpy``,
 ``_seed_candidates_numpy``, ``_nm_at_numpy``): the path where the native
 one does not apply, and what the tests hold it against.
-
-Not ported yet: CIGAR mode (``with_cigar=True``: the certified-diagonal
-tier and the traceback post-pass ``sw_cigar_windows``), which needs the
-device CIGAR walk; it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,10 +37,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from mgl_tpu_torch.core.params import SWParameters
+from mgl_tpu_torch.core.params import OverhangStrategy, SWParameters
 from mgl_tpu_torch.device import resolve_device
-from mgl_tpu_torch.native import (exact_nm, kmer_index_rows,
-                                  kmer_prefix_table, map_seed_vote)
+from mgl_tpu_torch.native import (cigar_decode_bulk_banded, exact_nm,
+                                  kmer_index_rows, kmer_prefix_table,
+                                  map_seed_vote)
+from mgl_tpu_torch.ops.sw import BAND, EZ_KEYS, banded_layout
 from mgl_tpu_torch.utils.metrics import METRICS
 
 _CODE = np.full(256, 4, np.uint8)
@@ -599,29 +604,24 @@ def _exact_tier(windows: np.ndarray, rsub: np.ndarray, window_pad: int,
     return exact, exact_o
 
 
-def _no_cigar(with_cigar: bool) -> None:
-    if with_cigar:
-        raise NotImplementedError(
-            "with_cigar=True (the certified-diagonal tier and the traceback "
-            "post-pass sw_cigar_windows) lands with the device CIGAR walk in "
-            "the next slice of the port; score mode runs now")
-
-
 def map_reads(index: ReferenceIndex, reads: np.ndarray,
               window_pad: int = 24, params=None, strategy=None,
               with_cigar: bool = False,
               device: str | torch.device = "cuda"):
-    """Full map in score mode: seed -> exact tier -> SW verify of each
-    read's window, gathered on ``device``.
+    """Full map: seed -> window extract -> SW verify of each read's
+    window, gathered on ``device``.
 
     Returns dict with pos (candidate window start), score (SW best score),
     votes, votes2, strand, mapq, offset (window offset where the exact
-    tier pinned it) and window_pad (unmapped: pos=-1).  ``strategy`` is
-    taken for the signature's sake: score mode does not read it.
+    tier pinned it) and window_pad (unmapped: pos=-1).  ``with_cigar``
+    adds cigar, each mapped read's CIGAR and offset from
+    :func:`sw_cigar_windows` under ``strategy`` (default SOFTCLIP), with
+    score 0 (as ``mgl_tpu``'s device path gives it); score mode does not
+    read ``strategy``.
     """
-    _no_cigar(with_cigar)
     dev = resolve_device(device)
     params = params or SWParameters(25, -50, 110, 6)
+    strategy = strategy or OverhangStrategy.SOFTCLIP
     N, L = reads.shape
     pos, votes, strand, votes2 = seed_candidates(index, reads, L,
                                                  both_strands=True)
@@ -637,6 +637,9 @@ def map_reads(index: ReferenceIndex, reads: np.ndarray,
         "offset": np.full(N, -1, np.int64),   # window offset where known
         "window_pad": window_pad,
     }
+    if with_cigar:
+        out["cigar"] = np.array([""] * N, dtype=object)
+        out["offset"] = np.zeros(N, np.int64)
     if len(mapped) == 0:
         return out
 
@@ -647,13 +650,20 @@ def map_reads(index: ReferenceIndex, reads: np.ndarray,
     # reverse complement (SAM stores SEQ/CIGAR in this orientation)
     rsub = np.where(strand[mapped, None] == 1,
                     revcomp(reads[mapped]), reads[mapped])
+    out["pos"][mapped] = start
+    if with_cigar:
+        res = sw_cigar_windows(index, start, rsub, wlen, params, strategy,
+                               device=dev)
+        for j, i in enumerate(mapped):
+            out["cigar"][i], out["offset"][i] = res[j]
+        out["score"][mapped] = 0
+        return out
     # the exact tier reads host windows; SW reads the device's.  Exact-tier
     # offsets are recorded so coordinates/SAM don't have to guess.
     win_idx = start[:, None] + np.arange(wlen)[None, :]
     windows = index.ref[np.clip(win_idx, 0, len(index.ref) - 1)]
     clipped = start != (pos[mapped] - window_pad)
     exact, exact_o = _exact_tier(windows, rsub, window_pad, wlen, L, clipped)
-    out["pos"][mapped] = start
     out["offset"][mapped[exact]] = exact_o[exact]
     out["score"][mapped[exact]] = L * int(params.match)
     rest = ~exact
@@ -754,14 +764,14 @@ def _split_starts(starts: np.ndarray, blocked: bool):
             (off >> 3).astype(np.int32), nib)
 
 
-def _sw_score_windows_async(index: ReferenceIndex, starts: np.ndarray,
-                            reads: np.ndarray, wlen: int, params,
-                            device: torch.device) -> torch.Tensor:
-    """Launch the window gather and the banded SW kernel in score-only
-    mode on ``device`` without waiting: returns the (B,) int32 best scores
-    (row 2 of the kernel's ez, ``max``), still on the device, so host work
-    for the next chunk overlaps this chunk's device time.  No padding of
-    the batch: nothing here recompiles for a new size."""
+def _sw_windows(index: ReferenceIndex, starts: np.ndarray,
+                reads: np.ndarray, wlen: int, params, device: torch.device,
+                indel_init: bool = False, with_traceback: bool = False):
+    """Launch the window gather and the banded SW kernel on ``device``
+    without waiting: (ez (6, B) int32, traceback words (B, G, 32) or
+    None), still on the device, so host work for the next chunk overlaps
+    this chunk's device time.  No padding of the batch: nothing here
+    recompiles for a new size."""
     from mgl_tpu_torch.kernels.sw_cuda import sw_banded
     from mgl_tpu_torch.kernels.window_cuda import window_gather
 
@@ -771,12 +781,19 @@ def _sw_score_windows_async(index: ReferenceIndex, starts: np.ndarray,
                for s in _split_starts(starts, blocked))
     packed = torch.from_numpy(_pack_codes(reads)).to(device)
     tgt, qry = window_gather(ref_dev, st, packed, wlen, L)
-    ez, _ = sw_banded(
+    return sw_banded(
         tgt, qry, torch.full((B,), wlen, dtype=torch.int32, device=device),
         torch.full((B,), L, dtype=torch.int32, device=device),
         params.match, params.mismatch, params.gap_open, params.gap_extend,
-        indel_init=False, with_traceback=False)
-    return ez[2]
+        indel_init=indel_init, with_traceback=with_traceback)
+
+
+def _sw_score_windows_async(index: ReferenceIndex, starts: np.ndarray,
+                            reads: np.ndarray, wlen: int, params,
+                            device: torch.device) -> torch.Tensor:
+    """The (B,) int32 best scores (row 2 of the kernel's ez, ``max``) of
+    :func:`_sw_windows` in score-only mode, still on the device."""
+    return _sw_windows(index, starts, reads, wlen, params, device)[0][2]
 
 
 def sw_score_windows(index: ReferenceIndex, starts: np.ndarray,
@@ -813,24 +830,38 @@ def map_reads_stream(index: ReferenceIndex, reads: np.ndarray,
                      params=None, with_cigar: bool = False,
                      strategy=None,
                      device: str | torch.device = "cuda") -> dict:
-    """Chunked score-mode mapping with host/device overlap: while the card
-    verifies chunk k, the host seeds and exact-tiers chunk k+1 (kernels
-    launch without a sync; chunk k's scores come back into pinned memory
-    behind a CUDA event, fetched one chunk behind).
+    """Chunked mapping with host/device overlap: while the card verifies
+    chunk k, the host seeds and exact-tiers chunk k+1 (kernels launch
+    without a sync; chunk k's scores come back into pinned memory behind a
+    CUDA event, fetched one chunk behind).
 
     Reads whose seeding found a competing locus (pos2) get that locus
     SW-scored in the SAME launch as the primary windows, and their MAPQ is
     rescored from the score gap (mapq_rescore); unambiguous reads keep
-    vote-based MAPQ.  Same outputs as map_reads, plus pos2/score2
-    diagnostics.  Host stages are timed in ``METRICS`` as map.seed,
-    map.host_tier, map.dispatch and map.sync.  ``strategy`` is taken for
-    the signature's sake: score mode does not read it.
+    vote-based MAPQ.  Same outputs as map_reads without with_cigar, plus
+    pos2/score2 diagnostics.  Host stages are timed in ``METRICS`` as
+    map.seed, map.host_tier, map.dispatch and map.sync.
+
+    ``with_cigar=True`` adds full CIGARs by a certified-diagonal tier: the
+    SW recurrence pins alignment starts to the matrix boundary, so a
+    full-length diagonal alignment scores exactly ``(L-nm)*match +
+    nm*mismatch``; where the kernel's best equals that, "<L>M" is provably
+    an optimal CIGAR.  Only reads where a gapped path beats the diagonal
+    (indels, mis-seeds, window-edge clips), and under the INDEL and
+    LEADING_INDEL strategies every non-exact read, go through
+    :func:`sw_cigar_windows` in a post-pass (``METRICS`` map.tb_reads,
+    map.traceback).  Score mode does not read ``strategy``.
     """
     from mgl_tpu_torch.kernels.pairhmm_cuda import to_host
 
-    _no_cigar(with_cigar)
     dev = resolve_device(device)
     params = params or SWParameters(25, -50, 110, 6)
+    strategy = strategy or OverhangStrategy.SOFTCLIP
+    # the certified tier's score model assumes the zero boundary rows of
+    # the non-indel-init strategies; INDEL/LEADING_INDEL windows take the
+    # traceback for every read
+    cert_ok = not (strategy & (OverhangStrategy.INDEL
+                               | OverhangStrategy.LEADING_INDEL))
     N, L = reads.shape
     wlen = L + 2 * window_pad
     out = {
@@ -845,13 +876,22 @@ def map_reads_stream(index: ReferenceIndex, reads: np.ndarray,
         "score2": np.full(N, -(2**30), np.int64),
         "window_pad": window_pad,
     }
+    if with_cigar:
+        out["cigar"] = np.array([""] * N, dtype=object)
+    tb_idx: list = []            # reads needing the traceback tier
     pending = None
 
     def finalize(p):
-        fetch, n1, idx1, idx2 = p
+        fetch, n1, idx1, idx2, diag1 = p
         with METRICS.timer("map.sync"):
             scores = fetch().astype(np.int64)
         out["score"][idx1] = scores[:n1]
+        if with_cigar and n1:
+            cert = cert_ok & (diag1 >= 0) & (scores[:n1] == diag1)
+            for i in idx1[cert]:
+                out["cigar"][i] = f"{L}M"
+            out["offset"][idx1[cert]] = window_pad
+            tb_idx.extend(idx1[~cert])
         if len(idx2):
             out["score2"][idx2] = scores[n1:]
             out["mapq"][idx2] = mapq_rescore(out["score"][idx2],
@@ -887,6 +927,13 @@ def map_reads_stream(index: ReferenceIndex, reads: np.ndarray,
             nm = _nm_at(index.ref, pos[mapped], rsub)
             exact = ~clipped & (nm == 0)
             exact_o = np.where(exact, np.int64(window_pad), np.int64(-1))
+            # certified-diagonal score: what a full-length gap-free
+            # alignment at the seeded diagonal scores (valid where the
+            # window isn't edge-clipped)
+            diag_score = np.where(
+                clipped, np.int64(-1),
+                (L - nm) * np.int64(params.match)
+                + nm * np.int64(params.mismatch))
             if clipped.any():
                 ci = np.nonzero(clipped)[0]
                 wi = start[ci, None] + np.arange(wlen)[None, :]
@@ -905,6 +952,9 @@ def map_reads_stream(index: ReferenceIndex, reads: np.ndarray,
         out["pos2"][lo + amb] = start2
         out["offset"][lo + mapped[exact]] = exact_o[exact]
         out["score"][lo + mapped[exact]] = L * int(params.match)
+        if with_cigar:
+            for i in lo + mapped[exact]:
+                out["cigar"][i] = f"{L}M"
         rest = ~exact
         launched = None
         if rest.any() or len(amb):
@@ -914,13 +964,94 @@ def map_reads_stream(index: ReferenceIndex, reads: np.ndarray,
                     np.concatenate([rsub[rest], rsub2], axis=0),
                     wlen, params, dev)
                 launched = (to_host(sc), int(rest.sum()),
-                            lo + mapped[rest], lo + amb)
+                            lo + mapped[rest], lo + amb, diag_score[rest])
         if pending is not None:
             finalize(pending)
         pending = launched
     if pending is not None:
         finalize(pending)
+    if with_cigar and tb_idx:
+        # traceback tier: the minority of reads whose optimal alignment
+        # isn't the seeded diagonal (indels / edge clips / mis-seeds)
+        METRICS.count("map.tb_reads", len(tb_idx))
+        with METRICS.timer("map.traceback"):
+            tb = np.asarray(tb_idx, np.int64)
+            rsub_tb = np.where(out["strand"][tb, None] == 1,
+                               revcomp(reads[tb]), reads[tb])
+            res = sw_cigar_windows(index, out["pos"][tb], rsub_tb, wlen,
+                                   params, strategy, device=dev)
+            for j, i in enumerate(tb):
+                out["cigar"][i], out["offset"][i] = res[j]
     return out
+
+
+def sw_cigar_windows(index: ReferenceIndex, starts: np.ndarray,
+                     reads: np.ndarray, wlen: int, params, strategy,
+                     band: int = 32, chunk: int = 8192,
+                     device: str | torch.device = "cuda") -> list:
+    """[(cigar, offset)] of each read against its reference window of
+    ``wlen`` bases from ``starts``, in chunks of ``chunk`` reads: the
+    window gather and the banded SW kernel in traceback mode on
+    ``device`` (``indel_init`` for INDEL and LEADING_INDEL), the CIGAR
+    walk there (``ops.cigar_device.decode_cigars_device``), and for the
+    pairs whose walk overflowed its segments, those pairs' words alone
+    fetched and decoded by the host decoder (``native``), as ``mgl_tpu``
+    does (mapper.py:1032).  The port's SW kernel has bands of 32 rows
+    only."""
+    from mgl_tpu_torch.ops.cigar_device import decode_cigars_device
+
+    if band != BAND:
+        raise ValueError(f"the banded SW kernel has bands of {BAND} rows, "
+                         f"not {band}")
+    dev = resolve_device(device)
+    out = []
+    for lo in range(0, len(reads), chunk):
+        ez, words, wpb = _sw_traceback_windows(
+            index, starts[lo: lo + chunk], reads[lo: lo + chunk], wlen,
+            params, strategy, dev)
+        res = decode_cigars_device(words, ez, wlen, reads.shape[1],
+                                   strategy, wpb)
+        out.extend(decode_overflow(res, words, ez, wlen, reads.shape[1],
+                                   strategy, wpb))
+    return out
+
+
+def _sw_traceback_windows(index: ReferenceIndex, starts: np.ndarray,
+                          reads: np.ndarray, wlen: int, params, strategy,
+                          device: torch.device):
+    """(ez (6, B), words (B, G, 32), words a band) of :func:`_sw_windows`
+    in traceback mode, with ``indel_init`` for INDEL and LEADING_INDEL."""
+    ez, words = _sw_windows(
+        index, starts, reads, wlen, params, device,
+        indel_init=bool(strategy & (OverhangStrategy.INDEL
+                                    | OverhangStrategy.LEADING_INDEL)),
+        with_traceback=True)
+    return ez, words, banded_layout(wlen, reads.shape[1])[1]
+
+
+def decode_overflow(res: list, words: torch.Tensor, ez: torch.Tensor,
+                    wlen: int, qlen: int, strategy, words_per_band: int
+                    ) -> list:
+    """``res`` with each None (a pair whose device walk overflowed) replaced
+    by the host decoder's (cigar, offset) from that pair's words and
+    ScoreMax, selected on their device and fetched alone."""
+    need = [b for b, r in enumerate(res) if r is None]
+    if not need:
+        return res
+    from mgl_tpu_torch.kernels.pairhmm_cuda import to_host
+
+    sel = torch.tensor(need, device=words.device)
+    w_fetch = to_host(words[sel].contiguous())
+    ez_fetch = to_host(ez[:, sel].contiguous())
+    ez_h = dict(zip(EZ_KEYS, ez_fetch().astype(np.int64)))
+    host = cigar_decode_bulk_banded(
+        w_fetch().view(np.uint32), ez_h, np.full(len(need), wlen, np.int32),
+        np.full(len(need), qlen, np.int32), int(strategy), BAND,
+        words_per_band)
+    res = list(res)
+    for b, r in zip(need, host):
+        res[b] = r
+    return res
 
 
 def sw_score_batch(targets: np.ndarray, queries: np.ndarray, params,

@@ -375,6 +375,137 @@ def simulate_reads(seed: int, ref_len: int, n_reads: int, read_len: int,
     return ref, reads, true_pos
 
 
+def indel_read_set() -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """``tests/test_mapper_scale.py:116``'s reads for the CIGAR walk: 96
+    of 120 bp against a 120 kbp reference, in five kinds (exact, a 3 bp
+    deletion, a 4 bp insertion, 10% mismatches with a clipped head, four
+    SNPs and a 2 bp deletion): (ref, window starts, reads, wlen)."""
+    rng = np.random.default_rng(5)
+    ref = rng.choice(ACGT, size=120_000)
+    L, N = 120, 96
+    wlen = L + 48
+    tp = rng.integers(24, len(ref) - L - 24, N)
+    reads = np.zeros((N, L), np.uint8)
+    for i in range(N):
+        s = tp[i]
+        r = ref[s: s + L].copy()
+        kind = i % 5
+        if kind == 1:
+            r = np.concatenate([ref[s: s + 50], ref[s + 53: s + L + 3]])
+        elif kind == 2:
+            r = np.concatenate([ref[s: s + 60], rng.choice(ACGT, 4),
+                                ref[s + 60: s + L - 4]])
+        elif kind == 3:
+            m = rng.random(L) < 0.1
+            r[m] = rng.choice(ACGT, int(m.sum()))
+            r[:7] = rng.choice(ACGT, 7)
+        elif kind == 4:
+            for o in (20, 45, 70, 95):
+                r[o] = ACGT[(int(np.searchsorted(ACGT, r[o])) + 1) % 4]
+            r = np.concatenate([r[:30], r[32:], ref[s + L: s + L + 2]])
+        reads[i] = r[:L]
+    return ref, (tp - 24).astype(np.int64), reads, wlen
+
+
+def deletion_sweep_set() -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """``tests/test_mapper_scale.py:160``'s reads: 32 of 120 bp, each
+    with n evenly spaced 2 bp deletions, n = 10..17 four times (2n + 1 =
+    21..35 walk segments, across the walk's SEG_CAP of 24), windows of
+    200: (ref, window starts, reads, wlen)."""
+    rng = np.random.default_rng(17)
+    ref = rng.choice(ACGT, size=60_000)
+    L, pad = 120, 40
+    wlen = L + 2 * pad
+    n_dels = list(range(10, 18)) * 4
+    tp = rng.integers(pad, len(ref) - 2 * wlen, len(n_dels))
+    reads = np.zeros((len(n_dels), L), np.uint8)
+    for i, nd in enumerate(n_dels):
+        s = int(tp[i])
+        chunk = L // (nd + 1)
+        span, got, parts = s, 0, []
+        for j in range(nd + 1):
+            take = chunk if j < nd else L - got
+            parts.append(ref[span: span + take])
+            got += take
+            span += take + 2                      # a 2 bp deletion
+        reads[i] = np.concatenate(parts)[:L]
+    return ref, (tp - pad).astype(np.int64), reads, wlen
+
+
+def deletion_reads(seed: int, ref: np.ndarray, n_reads: int, read_len: int,
+                   err: float = 0.01, del_frac: float = 0.02,
+                   del_at: int = 70, max_del: int = 2
+                   ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(reads, true_pos, del_idx): reads drawn from ``ref`` with
+    substitutions at rate ``err``, of which ``del_frac`` (at random, sorted
+    ``del_idx``) carry a 1 to ``max_del`` bp deletion after read position
+    ``del_at`` - the error model of ``tools/run_scale_configs.py:117
+    config4_cigar``, with the deletion reads spread over the batch."""
+    rng = np.random.default_rng(seed)
+    true_pos = rng.integers(0, len(ref) - read_len - max_del, size=n_reads)
+    reads = ref[true_pos[:, None] + np.arange(read_len)[None, :]].copy()
+    del_idx = np.sort(rng.choice(n_reads, int(n_reads * del_frac),
+                                 replace=False))
+    d = rng.integers(1, max_del + 1, len(del_idx))
+    tail = true_pos[del_idx, None] + d[:, None] + np.arange(
+        del_at, read_len)[None, :]
+    reads[del_idx, del_at:] = ref[tail]
+    mut = rng.random(reads.shape) < err
+    reads[mut] = ACGT[(np.searchsorted(ACGT, reads[mut])
+                       + rng.integers(1, 4, int(mut.sum()))) % 4]
+    return reads, true_pos, del_idx
+
+
+def write_map_inputs(directory, seed: int, lens=None):
+    """A two-contig FASTA (20 and 15 kbp; the first 60 bases of each in
+    lowercase, 70 a line) and a FASTQ of 40 reads (100 bp unless ``lens``
+    gives each length) in ``directory``: exact, with two SNPs, with a 2 bp
+    deletion, with a 2 bp insertion, reverse-complemented, and random
+    (unmapped), in turn.  Returns the (fasta, fastq) paths."""
+    import pathlib
+
+    directory = pathlib.Path(directory)
+    rng = np.random.default_rng(seed)
+    contigs = {"chrA": rng.choice(ACGT, 20_000),
+               "chrB": rng.choice(ACGT, 15_000)}
+    fa = directory / "ref.fa"
+    with open(fa, "w") as f:
+        for name, seq in contigs.items():
+            s = seq.tobytes().decode()
+            f.write(f">{name} test contig\n")
+            f.write(s[:60].lower() + "\n")
+            for i in range(60, len(s), 70):
+                f.write(s[i: i + 70] + "\n")
+            f.write("\n")
+    lens = [100] * 40 if lens is None else lens
+    rc = bytes.maketrans(b"ACGT", b"TGCA")
+    fq = directory / "reads.fq"
+    with open(fq, "w") as f:
+        for i, L in enumerate(lens):
+            seq = contigs["chrA" if i % 2 else "chrB"]
+            st = int(rng.integers(0, len(seq) - L - 10))
+            kind = i % 6
+            if kind == 2:       # a 2 bp deletion at 50
+                r = np.concatenate([seq[st: st + 50],
+                                    seq[st + 52: st + L + 2]])
+            elif kind == 3:     # a 2 bp insertion at 40
+                r = np.concatenate([seq[st: st + 40], rng.choice(ACGT, 2),
+                                    seq[st + 40: st + L - 2]])
+            elif kind == 5:
+                r = rng.choice(ACGT, L)
+            else:
+                r = seq[st: st + L].copy()
+            if kind == 1:       # two SNPs
+                for p in (20, L - 30):
+                    r[p] = ACGT[(np.searchsorted(ACGT, r[p]) + 1) % 4]
+            b = r.tobytes()
+            if kind == 4:
+                b = b.translate(rc)[::-1]
+            q = (rng.integers(2, 41, L) + 33).astype(np.uint8).tobytes()
+            f.write(f"@r{i} extra\n{b.decode()}\n+\n{q.decode()}\n")
+    return fa, fq
+
+
 def window_starts(seed: int, ref_len: int, wlen: int, n_random: int
                   ) -> np.ndarray:
     """int64 window starts that reach every edge of the mapper's gather:

@@ -467,12 +467,9 @@ def test_stream_equals_map_reads_and_chunks(sim):
 
 
 def test_unported_options_raise(sim):
-    """CIGAR mode and a mesh are the next slices': they raise."""
+    """A mesh is a later slice's (the sharded sort): it raises.  CIGAR mode
+    runs (tests/test_torch_mapper_cigar.py)."""
     idx, _, reads, _ = sim
-    with pytest.raises(NotImplementedError, match="with_cigar"):
-        M.map_reads(idx, reads[:4], with_cigar=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="with_cigar"):
-        M.map_reads_stream(idx, reads[:4], with_cigar=True, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         align_and_sort(idx, reads[:4], mesh=object(), device="cpu")
 
