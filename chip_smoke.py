@@ -22,7 +22,9 @@ banded kernels; then the read mapper (``map_reads_stream``) and
 ``align_and_sort`` on a 64 Mbp reference, through the window gather and
 the banded SW kernel in score mode; then the mapper in CIGAR mode, through
 the banded SW kernel in traceback mode and the CIGAR walk kernel; then the
-``mgl-map`` CLI.  Phases:
+``mgl-map`` CLI; then the parallel layer: the sharded pipeline step on a
+one-rank NCCL mesh, the elastic pipeline and map scale-outs with worker
+processes on the card, and ``align_and_sort`` on the mesh.  Phases:
 
 0. environment (card, power limit, CUDA, nvcc, the port's host library);
 1. build of the kernels;
@@ -63,7 +65,18 @@ the banded SW kernel in traceback mode and the CIGAR walk kernel; then the
    the banded f32 kernel on the same pairs, with its R x W sweep; the
    seed-extend kernel and the f64 per-pair kernel at a region's 6,144
    pairs; the window gather at one mapper chunk; the CIGAR walk at one
-   traceback chunk of 8,192 windows, with the post-pass's host time.
+   traceback chunk of 8,192 windows, with the post-pass's host time;
+9a. ``parallel/pipeline.pipeline_step`` at a real size on a one-rank NCCL
+   mesh (see :func:`run_step`): every output bit-equal to the same step on
+   the CPU, both kernels against their plain versions at its shapes, the
+   warm step's median and spread, kernel times, bound and idle share;
+9b. the elastic pipeline scale-out (see :func:`run_step_scaleout`): two
+   ``worker --device cuda`` processes, one killed by SIGKILL, bit-identical
+   to one process;
+9c. the elastic map scale-out at config 4's shape (see
+   :func:`run_map_scaleout`): phase 7b's workload through two
+   ``map-worker --device cuda`` processes, one killed, equal to phase 7b;
+9d. ``align_and_sort`` on the one-rank mesh, equal to ``mesh=None``.
 
 Any failed phase raises and the script exits non-zero.  The last line is
 one JSON object naming the device; the line before it lists the kernels
@@ -768,6 +781,283 @@ def run_cli() -> str:
                         f" {stars} '*' CIGARs among them, "
                         f"{time.perf_counter() - t0:.2f} s")
     return "; ".join(held)
+
+
+# the step phase: the engine fixture's eight 512 x 12 regions of 151 bp
+# reads against 420 bp haps in one tile (testing.step_inputs), SW of the
+# reads against a replicated 420 bp window, 4,096 keys
+STEP_READS, STEP_HAPS, STEP_READ_LEN, STEP_HAP_LEN = 4096, 12, 151, 420
+STEP_CHUNK = 1024          # the scale-out's chunks: 4 of the step's reads
+
+
+def _step_bound(reads, haps, ref, outs) -> tuple[float, str, float, float]:
+    """(bound ms, what bounds it, operations ms, bytes ms) of one step at
+    these inputs: PairHMM cells at FLOPS_PER_CELL float32 flops and SW
+    cells at SW_SCORE_OPS_PER_CELL int32 ops, over their peaks, against
+    each input read once and each output written once."""
+    n_r, n_h = len(reads["rslen"]), len(haps["haplen"])
+    ph_cells = n_r * n_h * STEP_READ_LEN * STEP_HAP_LEN
+    sw_cells = n_r * int(ref["tlen"][0]) * STEP_READ_LEN
+    ops_ms = (ph_cells * FLOPS_PER_CELL / PEAK["f32"]
+              + sw_cells * SW_SCORE_OPS_PER_CELL / PEAK["int32"]) * 1e3
+    n_bytes = (sum(a.nbytes for d in (reads, haps, ref) for a in d.values())
+               + sum(t.numel() * t.element_size() for t in outs.values()))
+    bytes_ms = n_bytes / PEAK["bytes"] * 1e3
+    return (max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms
+            else "bytes", ops_ms, bytes_ms)
+
+
+def run_step(drive) -> dict:
+    """Phase 9a: ``parallel/pipeline.pipeline_step`` at a real size on a
+    one-rank NCCL mesh (``init_runtime`` over a localhost TCP address;
+    NCCL refuses two ranks on one card, so the bitonic exchanges and the
+    hp reduction do not run here: the CPU tests hold them under gloo).
+
+    Checks every output bit for bit against the same step on a 1 x 1 cpu
+    mesh (the kernels' plain versions), and the two kernels at the step's
+    shapes against their plain versions on the card.  Measures the warm
+    step (host clock, 5 runs), both kernels (device time), the plain
+    versions on the card, the bound and the idle share of a warm step."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mgl_tpu_torch.kernels.pairhmm_cuda import pairhmm_banded_f32
+    from mgl_tpu_torch.kernels.sw_cuda import sw_banded, sw_banded_plain
+    from mgl_tpu_torch.ops.pairhmm import forward_plain
+    from mgl_tpu_torch.parallel.dryrun import free_port
+    from mgl_tpu_torch.parallel.launcher import init_runtime
+    from mgl_tpu_torch.parallel.mesh import make_mesh
+    from mgl_tpu_torch.parallel.pipeline import (likelihood_planes,
+                                                 pipeline_step)
+    from mgl_tpu_torch.profile_e2e import _tally
+    from mgl_tpu_torch.tables import BASE_ENC
+    from mgl_tpu_torch.testing import (cuda_ms, queued_ms, step_inputs,
+                                       timed_calls)
+
+    reads, haps, ref = step_inputs(0, STEP_READS, STEP_HAPS, STEP_READ_LEN,
+                                   STEP_HAP_LEN)
+    # the same step on the CPU first, in a process with no process group
+    t0 = time.perf_counter()
+    cpu = pipeline_step(make_mesh(1, 1, device="cpu"))(reads, haps, ref)
+    t_cpu = time.perf_counter() - t0
+
+    init_runtime(f"tcp://127.0.0.1:{free_port()}", 1, 0, "cuda")
+    mesh = make_mesh(1, 1)
+    if dist.get_backend() != "nccl" or mesh.device.type != "cuda":
+        raise AssertionError(f"the step's mesh is {dist.get_backend()} on "
+                             f"{mesh.device}, not NCCL on the card")
+    step = pipeline_step(mesh)
+
+    def main_path():
+        out = step(reads, haps, ref)
+        torch.cuda.synchronize()
+        return out
+
+    out, launches, t_cold = drive(main_path)
+    for k, v in cpu.items():
+        if not torch.equal(out[k].cpu(), v):
+            raise AssertionError(f"the step's {k} on the card != on the CPU")
+    lik = out["likelihoods"].cpu().numpy()
+    if lik.shape != (STEP_READS, STEP_HAPS) or not np.isfinite(lik).all():
+        raise AssertionError("step likelihoods: shape or values")
+    keys = (out["sorted_key_hi"] << 32 | out["sorted_key_lo"]).cpu().numpy()
+    if not (np.diff(keys) >= 0).all():
+        raise AssertionError("step keys not in order")
+    warm = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        main_path()
+        warm.append(time.perf_counter() - t0)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        main_path()
+        wall = time.perf_counter() - t0
+    busy = _tally(prof)[2]
+    idle = None if busy is None else 1.0 - busy / 1e6 / wall
+
+    # the two kernels at the step's shapes, each against its plain version
+    # on the card, on the arguments the step gives them
+    dev = mesh.device
+    enc = torch.from_numpy(BASE_ENC.copy()).to(dev)
+    to = lambda a, dt: torch.from_numpy(
+        np.ascontiguousarray(a)).to(dev, dt)
+    rslen = to(reads["rslen"], torch.int32)
+    planes, rc = likelihood_planes(to(reads["rchar"], torch.int32), rslen,
+                                   to(reads["trans"], torch.float32), enc)
+    pair = torch.arange(STEP_READS * STEP_HAPS, device=dev)
+    ph_args = (planes, rc, rslen, enc[to(haps["hap"], torch.long)],
+               to(haps["haplen"], torch.int32),
+               to(haps["y_init"], torch.float32), pair // STEP_HAPS,
+               pair % STEP_HAPS)
+    ph_ms = queued_ms(lambda: pairhmm_banded_f32(*ph_args), 5)
+    ph_plain, ph_plain_ms = timed_calls(lambda: forward_plain(*ph_args))
+    if not torch.equal(pairhmm_banded_f32(*ph_args), ph_plain):
+        raise AssertionError("pairhmm_banded_f32 != plain at the step")
+    sw_args = (to(ref["target"], torch.uint8).expand(STEP_READS, -1)
+               .contiguous(), to(reads["query"], torch.uint8),
+               to(np.repeat(ref["tlen"], STEP_READS), torch.int32),
+               to(reads["qlen"], torch.int32), *SW_PARAMS)
+    kw = dict(indel_init=False, with_traceback=False)
+    sw_ms = cuda_ms(lambda: sw_banded(*sw_args, **kw), 5)
+    (sw_plain, _), sw_plain_ms = timed_calls(
+        lambda: sw_banded_plain(*sw_args, **kw))
+    if not torch.equal(sw_banded(*sw_args, **kw)[0], sw_plain):
+        raise AssertionError("sw_banded != plain at the step")
+    b_ms, b_by, ops_ms, bytes_ms = _step_bound(reads, haps, ref, out)
+    return {"launches": launches, "t_cold": t_cold, "t_cpu": t_cpu,
+            "warm": warm, "idle": idle, "busy_ms": None if busy is None
+            else busy / 1e3, "wall": wall, "ph_ms": ph_ms,
+            "ph_plain_ms": ph_plain_ms, "sw_ms": sw_ms,
+            "sw_plain_ms": sw_plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "ops_ms": ops_ms, "bytes_ms": bytes_ms, "mesh": mesh,
+            "n_neg_sw": int((out["sw_scores"] < 0).sum())}
+
+
+def _spawn_workers(role: str, address, workload, out_dir, hb_ttl,
+                   procs: list) -> tuple:
+    """Start a victim worker wedged on chunk 0, wait until it holds its
+    lease, start a survivor, kill the victim by SIGKILL.  Returns (victim,
+    survivor); both are in ``procs``."""
+    import os
+    import signal
+
+    from mgl_tpu_torch.parallel.transport import CoordinatorClient
+
+    host, port = address
+
+    def spawn(name, *more):
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "mgl_tpu_torch.parallel.launcher", role,
+             host, str(port), name, str(workload), str(out_dir), "--device",
+             "cuda", "--heartbeat-ttl", str(hb_ttl), *more],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT),
+                           "MGL_TPU_LOG": "launcher=info"},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        return procs[-1]
+
+    victim = spawn("victim", "--hang-chunk", "0")
+    c = CoordinatorClient(address)
+    deadline = time.monotonic() + 300
+    while c.stats()["leased"] < 1:
+        if time.monotonic() > deadline or victim.poll() is not None:
+            raise AssertionError(f"the {role} victim never leased a chunk: "
+                                 f"{victim.poll()}")
+        time.sleep(0.05)
+    c.close()
+    survivor = spawn("survivor")
+    time.sleep(0.5)
+    victim.send_signal(signal.SIGKILL)
+    victim.wait(timeout=30)
+    return victim, survivor
+
+
+def _end_workers(procs: list, server) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.communicate(timeout=30)
+    server.stop()
+
+
+def run_step_scaleout(tmp: pathlib.Path, mesh) -> dict:
+    """Phase 9b: the elastic pipeline scale-out on the card: a
+    ``make_workload`` of the step's shapes (4,096 reads of 151 bp, 12 haps
+    of 420 bp) in 4 chunks of 1,024, two ``worker --device cuda``
+    processes, one wedged on chunk 0 and killed by SIGKILL; the assembled
+    output must equal a single-process ``ChunkRunner`` on ``mesh`` over
+    the same chunks bit for bit."""
+    import numpy as np
+
+    from mgl_tpu_torch.parallel.launcher import (ChunkRunner, assemble_output,
+                                                 finish, load_workload,
+                                                 make_chunks, make_workload,
+                                                 run_scaleout)
+    from mgl_tpu_torch.pipelines.checkpoint import CheckpointedRun
+
+    workload = tmp / "step.npz"
+    make_workload(workload, n_reads=STEP_READS, n_haps=STEP_HAPS,
+                  read_len=STEP_READ_LEN, hap_len=STEP_HAP_LEN, seed=1)
+    reads, haps, ref = load_workload(workload)
+    t0 = time.perf_counter()
+    runner = ChunkRunner(mesh, haps, ref)
+    chunks = make_chunks(STEP_READS, STEP_CHUNK)
+    run = CheckpointedRun(tmp / "step_base", len(chunks), tag="scaleout")
+    for ch in chunks:
+        run.save_chunk(ch["chunk"], runner.run(reads, ch["lo"], ch["hi"]))
+    base = assemble_output(run)
+    t_base = time.perf_counter() - t0
+
+    server, run, _ = run_scaleout(str(workload), str(tmp / "step_dist"),
+                                  STEP_CHUNK, lease_ttl=4.0,
+                                  heartbeat_ttl=2.0)
+    procs: list = []
+    t0 = time.perf_counter()
+    try:
+        _, survivor = _spawn_workers("worker", server.address, workload,
+                                     tmp / "step_dist", 2.0, procs)
+        out = finish(server, run, timeout=300)
+        _, err = survivor.communicate(timeout=120)
+        if survivor.returncode != 0:
+            raise AssertionError(f"the survivor failed: {err[-2000:]}")
+        stats = server.coord.stats()
+    finally:
+        _end_workers(procs, server)
+    t_dist = time.perf_counter() - t0
+    if "victim" not in stats["dead_workers"]:
+        raise AssertionError(f"the victim was not reaped: {stats}")
+    for k in ("likelihoods", "best_hap_lik", "sw_scores", "sorted_keys"):
+        if not np.array_equal(out[k], base[k]):
+            raise AssertionError(f"scale-out {k} != the single process's")
+    return {"t_base": t_base, "t_dist": t_dist, "stats": stats}
+
+
+def run_map_scaleout(tmp: pathlib.Path, mapper: dict) -> dict:
+    """Phase 9c: the elastic map scale-out at config 4's shape (BASELINE
+    config 4, data-parallel across hosts): phase 7b's 64 Mbp reference and
+    262,144 reads through ``save_map_workload``, 2 chunks of 131,072, two
+    ``map-worker --device cuda`` processes, one wedged on chunk 0 and
+    killed by SIGKILL; every ``MAP_OUT_KEYS`` array must equal phase 7b's
+    single-process ``map_reads_stream(chunk=131072)``.  Returns the
+    workers' index build and map times from their logs."""
+    import numpy as np
+
+    from mgl_tpu_torch.parallel.launcher import (MAP_OUT_KEYS,
+                                                 assemble_map_output, finish,
+                                                 run_scaleout_map,
+                                                 save_map_workload)
+
+    workload = tmp / "map.npz"
+    save_map_workload(workload, mapper["index"].ref, mapper["reads"])
+    server, run, _ = run_scaleout_map(str(workload), str(tmp / "map_dist"),
+                                      MAP_CHUNK, lease_ttl=6.0,
+                                      heartbeat_ttl=3.0)
+    procs: list = []
+    t0 = time.perf_counter()
+    try:
+        victim, survivor = _spawn_workers("map-worker", server.address,
+                                          workload, tmp / "map_dist", 3.0,
+                                          procs)
+        out = finish(server, run, timeout=600, assemble=assemble_map_output)
+        _, err = survivor.communicate(timeout=120)
+        if survivor.returncode != 0:
+            raise AssertionError(f"the survivor failed: {err[-2000:]}")
+        v_err = victim.communicate(timeout=30)[1]
+        stats = server.coord.stats()
+    finally:
+        _end_workers(procs, server)
+    t_dist = time.perf_counter() - t0
+    if "victim" not in stats["dead_workers"]:
+        raise AssertionError(f"the victim was not reaped: {stats}")
+    for k in MAP_OUT_KEYS:
+        if not np.array_equal(out[k], mapper["out"][k]):
+            raise AssertionError(f"map scale-out {k} != phase 7b's")
+    times = [re.sub(r"^\S+ \S+ INFO \S+: ", "", line) for line in
+             (v_err + err).splitlines()
+             if "built the index" in line or "mapped chunk" in line]
+    return {"t_dist": t_dist, "times": times, "stats": stats}
 
 
 def main() -> int:
@@ -1963,6 +2253,85 @@ def main() -> int:
         del keys_d, vals_d
     log(f"    sort_records_single (torch.sort, stable, + payload gather): "
         f"{'; '.join(sort_txt)}; equal to a stable NumPy argsort; card {card}")
+
+    # ---- phase 9a: the sharded step at a real size ----------------------
+    step = run_step(drive)
+    step_n = step["launches"]
+    if min(step_n["pairhmm_banded_f32"], step_n["sw_banded"]) < 1:
+        raise AssertionError(f"a kernel of the step never launched: {step_n}")
+    for k in kernels:
+        launches[k] += step_n[k]
+    warm = sorted(step["warm"])
+    idle_txt = ("not measured (no device events in the trace)"
+                if step["idle"] is None else
+                f"{step['idle']:.4f} (device busy {step['busy_ms']:.3f} ms of "
+                f"a {step['wall']:.4f} s warm step)")
+    n_pairs = STEP_READS * STEP_HAPS
+    log(f"[9a step] parallel/pipeline.pipeline_step on a one-rank NCCL mesh "
+        f"(init_runtime over tcp://127.0.0.1): {STEP_READS} reads of "
+        f"{STEP_READ_LEN} bp x {STEP_HAPS} haps of {STEP_HAP_LEN} bp "
+        f"({n_pairs} pairs), SW of the reads against a replicated "
+        f"{STEP_HAP_LEN} bp window ({step['n_neg_sw']} negative best "
+        f"scores), {STEP_READS} keys; launches {step_n}; cold "
+        f"{step['t_cold']:.3f} s; every output bit-equal to the same step on "
+        f"a 1 x 1 cpu mesh ({step['t_cpu']:.2f} s on the host's CPU); keys "
+        f"ascending")
+    log(f"    step warm (host clock, 5 runs): median {warm[2] * 1e3:.3f} ms, "
+        f"min {warm[0] * 1e3:.3f}, max {warm[-1] * 1e3:.3f} "
+        f"({n_pairs / warm[2]:.1f} pairs/s); idle share {idle_txt}; "
+        f"pairhmm_banded_f32 at {n_pairs} pairs {STEP_READ_LEN}x"
+        f"{STEP_HAP_LEN} {step['ph_ms']:.4f} ms (plain on the card "
+        f"{step['ph_plain_ms']:.3f} ms, equal); sw_banded score-only at "
+        f"{STEP_READS} x {STEP_HAP_LEN}x{STEP_READ_LEN} {step['sw_ms']:.4f} "
+        f"ms (plain {step['sw_plain_ms']:.3f} ms, equal); the step's bound "
+        f"{step['bound_ms']:.5f} ms ({step['bound_by']}: operations "
+        f"{step['ops_ms']:.5f} ms, bytes {step['bytes_ms']:.5f} ms), "
+        f"share of the median {step['bound_ms'] / (warm[2] * 1e3):.4f}; "
+        f"plain step on the card (the two plain versions) "
+        f"{step['ph_plain_ms'] + step['sw_plain_ms']:.3f} ms; card {card}")
+
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp_dir:
+        tmp = pathlib.Path(tmp_dir)
+        # ---- phase 9b: the elastic pipeline scale-out on the card -------
+        sc = run_step_scaleout(tmp, step["mesh"])
+        log(f"[9b step scale-out] make_workload {STEP_READS} x {STEP_HAPS} "
+            f"({STEP_READ_LEN} x {STEP_HAP_LEN} bp) in "
+            f"{STEP_READS // STEP_CHUNK} chunks of {STEP_CHUNK}; two `worker "
+            f"--device cuda` processes, the victim wedged on chunk 0 and "
+            f"killed by SIGKILL; assembled output bit-identical to one "
+            f"process's ChunkRunner ({sc['t_base']:.3f} s); scale-out "
+            f"{sc['t_dist']:.3f} s from the first spawn; coordinator "
+            f"{sc['stats']}")
+        # ---- phase 9c: the elastic map scale-out at config 4's shape -----
+        ms9 = run_map_scaleout(tmp, mapper)
+        log(f"[9c map scale-out] phase 7b's {MAP_REF_LEN / 1e6:.0f} Mbp "
+            f"reference and {MAP_READS} reads in {MAP_READS // MAP_CHUNK} "
+            f"chunks of {MAP_CHUNK}; two `map-worker --device cuda` "
+            f"processes, the victim wedged on chunk 0 and killed by SIGKILL; "
+            f"every MAP_OUT_KEYS array equal to phase 7b's map_reads_stream; "
+            f"{ms9['t_dist']:.3f} s from the first spawn; workers: "
+            f"{'; '.join(ms9['times'])}; card {card}")
+
+    # ---- phase 9d: align_and_sort on the one-rank mesh -------------------
+    from mgl_tpu_torch.pipelines.align_sort import align_and_sort
+
+    idx7, reads7 = mapper["index"], mapper["reads"]
+    srt_mesh, sort_n, t_sort = drive(
+        lambda: align_and_sort(idx7, reads7, mesh=step["mesh"], device=dev))
+    srt_none = align_and_sort(idx7, reads7, device=dev)
+    for k in srt_none:
+        if not np.array_equal(srt_mesh[k], srt_none[k]):
+            raise AssertionError(f"align_and_sort(mesh=1x1) {k} != mesh=None")
+    for k in kernels:
+        launches[k] += sort_n[k]
+    log(f"[9d align_and_sort(mesh=...)] on phase 7b's {MAP_READS} reads with "
+        f"the one-rank NCCL mesh: every output equal to mesh=None; launches "
+        f"{sort_n}; {t_sort:.3f} s")
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
 
     if any(m == "jax" or m.startswith(("jax.", "mgl_tpu."))
            or m == "mgl_tpu" for m in sys.modules):

@@ -1,1 +1,3 @@
-"""The port's parallel layer: so far the one-device record sort."""
+"""The port's parallel layer: the mesh of ranks, the sharded sort and
+pipeline step, the elastic scale-out and its launcher, on
+``torch.distributed``."""

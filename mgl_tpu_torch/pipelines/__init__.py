@@ -1,1 +1,2 @@
-"""The port's pipelines: the read mapper and align + sort."""
+"""The port's pipelines: the read mapper, align + sort and the chunk
+checkpoint ledger."""

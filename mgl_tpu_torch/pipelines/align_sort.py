@@ -1,11 +1,10 @@
-"""End-to-end align + global coordinate sort (BASELINE.json config 5), on
-one device.
+"""End-to-end align + global coordinate sort (BASELINE.json config 5).
 
 The port of ``mgl_tpu/pipelines/align_sort.py``: maps a read batch against
 a reference (``pipelines/mapper.py``, score mode), builds 64-bit
 coordinate keys (contig << 48 | position << 16 | tiebreak), and sorts them
-on the device (``parallel/sort.py:sort_records_single``).  The sharded
-sort across a mesh is not ported yet: a ``mesh`` raises.
+on one device (``parallel/sort.py:sort_records_single``) or across the
+ranks of a mesh's dp axis (``parallel/sort.py:sort_records``).
 """
 
 from __future__ import annotations
@@ -14,7 +13,7 @@ import numpy as np
 import torch
 
 from mgl_tpu_torch.device import resolve_device
-from mgl_tpu_torch.parallel.sort import sort_records_single
+from mgl_tpu_torch.parallel.sort import sort_records, sort_records_single
 from mgl_tpu_torch.pipelines.mapper import ReferenceIndex, map_reads
 
 
@@ -36,13 +35,11 @@ def align_and_sort(index: ReferenceIndex, reads: np.ndarray, mesh=None,
     (contig, local position); single-contig by position.  Returns dict:
     order (read indices sorted by coordinate), keys (sorted), pos/score
     per read (original order), plus contig/local_pos per read.  Mapping
-    and the sort run on ``device``.
+    runs on ``device``, and so does the sort without a mesh or on a
+    one-rank mesh; on a larger ``mesh`` (``parallel/mesh.make_mesh``, every
+    rank calling with the same reads) the keys are sorted across its dp
+    axis on the mesh's device, and every rank gets the whole result.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "align_and_sort(mesh=...) needs the sharded sort of the "
-            "parallel layer, which the port does not have yet; leave mesh "
-            "None for the one-device sort")
     dev = resolve_device(device)
     res = map_reads(index, reads, device=dev)
     n = len(reads)
@@ -59,8 +56,11 @@ def align_and_sort(index: ReferenceIndex, reads: np.ndarray, mesh=None,
     keys = coordinate_keys(np.where(contig >= 0, contig, 0),
                            np.where(local >= 0, local, -1),
                            np.arange(n) & 0xFFFF)
-    skeys, order = sort_records_single(keys, np.arange(n, dtype=np.int32),
-                                       device=dev)
+    vals = np.arange(n, dtype=np.int32)
+    if mesh is not None and mesh.size > 1:
+        skeys, order = sort_records(keys, vals, mesh, "dp")
+    else:
+        skeys, order = sort_records_single(keys, vals, device=dev)
     out = dict(res)
     out.update({"order": order, "keys": skeys})
     return out

@@ -3,8 +3,9 @@
 regions, hap sets for the shared kernel's edges, the seed-extend
 scorer's edge pairs, simulated references and reads for the mapper and
 the window starts that reach every edge of its gather, golden rows,
-tensor packers, traceback comparisons of both layouts and CUDA-event
-timers.
+tensor packers, traceback comparisons of both layouts, CUDA-event
+timers, the sharded step's inputs at a GATK shape, and the functions that
+the parallel layer's tests run in spawned ranks and worker processes.
 Nothing on the main path imports this module.
 """
 
@@ -575,3 +576,138 @@ def _between_events(fn, iters: int):
     stop.record()
     stop.synchronize()
     return out, start.elapsed_time(stop) / iters
+
+
+def step_inputs(seed: int, n_reads: int = 4096, n_haps: int = 12,
+                rdlen: int = 151, haplen: int = 420, n_regions: int = 8):
+    """Host inputs of ``parallel/pipeline.pipeline_step`` at a GATK shape:
+    ``n_regions`` :func:`engine_region` regions of ``n_reads /
+    n_regions`` reads (every 16th random, in the rescue tier) stacked into
+    one tile against the first region's ``n_haps`` haps; the SW window is
+    that region's first hap, replicated; keys are distinct-with-high-
+    probability 62-bit draws.  (reads, haps, ref_window) in the step's
+    layout (``make_example_inputs``'s keys and dtypes)."""
+    from mgl_tpu_torch.core.context import CTX_F32, read_transition_rows
+    from mgl_tpu_torch.parallel.sort import split_u64
+
+    per = n_reads // n_regions
+    regions = [engine_region(seed + k, per, n_haps, rdlen, haplen)
+               for k in range(n_regions)]
+    reads = [r for rs, _ in regions for r in rs]
+    haps = regions[0][1]
+    track = lambda key: np.stack([r[key] for r in reads])
+    t = read_transition_rows(track("q"), track("i"), track("d"), track("c"),
+                             CTX_F32)
+    trans = np.zeros((n_reads, 7, rdlen + 1), np.float32)
+    for k in range(5):
+        trans[:, k] = t[k]
+    trans[:, 5] = (np.float32(1.0) - t[5]).astype(np.float32)
+    trans[:, 6] = (t[5] * (np.float32(1.0) / np.float32(3.0))).astype(
+        np.float32)
+    bases = track("bases").astype(np.int32)
+    rchar = np.zeros((n_reads, rdlen + 1), np.int32)
+    rchar[:, 1:] = bases
+    keys = np.random.default_rng(seed).integers(0, 2**62, n_reads).astype(
+        np.uint64)
+    key_hi, key_lo = split_u64(keys)
+    hap = np.stack(haps).astype(np.int32)
+    return ({"rchar": rchar, "rslen": np.full(n_reads, rdlen, np.int32),
+             "trans": trans, "query": bases,
+             "qlen": np.full(n_reads, rdlen, np.int32),
+             "key_hi": key_hi, "key_lo": key_lo},
+            {"hap": hap, "haplen": np.full(n_haps, haplen, np.int32),
+             "y_init": np.full(n_haps, np.float32(CTX_F32.initial_constant)
+                               / np.float32(haplen), np.float32)},
+            {"target": hap[:1].copy(), "tlen": np.full(1, haplen, np.int32)})
+
+
+# ---- the parallel layer's multi-process targets: spawned ranks
+# (parallel/dryrun.run_ranks) and worker processes import them by name
+
+def sort_keys_full_range(seed: int, n: int) -> np.ndarray:
+    """n uint64 keys over the full range: random draws, some duplicated,
+    some equal to the all-ones padding key of ``sort_records``, and 0."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 2**64 - 1, size=n, dtype=np.uint64, endpoint=True)
+    keys[rng.integers(0, n, n // 16)] = np.uint64(0xFFFFFFFFFFFFFFFF)
+    keys[rng.integers(0, n, n // 16)] = keys[rng.integers(0, n, n // 16)]
+    keys[0] = 0
+    return keys
+
+
+def mesh_suite(rank: int, pipelines, sorts, out_dir: str) -> None:
+    """One rank of the parallel layer's CPU tests: for each (n_dp, n_hp,
+    seed, kwargs) of ``pipelines`` the step on that mesh over
+    ``make_example_inputs``, and for each (n_dp, n_hp, keys) of ``sorts``
+    ``sort_records`` over dp; rank 0 saves the gathered outputs as
+    ``pipe_<n_dp>x<n_hp>_<seed>.npz`` and ``sort_<n_dp>x<n_hp>.npz``."""
+    from mgl_tpu_torch.parallel.launcher import collect_global
+    from mgl_tpu_torch.parallel.mesh import AXES, make_mesh
+    from mgl_tpu_torch.parallel.pipeline import (make_example_inputs,
+                                                 pipeline_step)
+    from mgl_tpu_torch.parallel.sort import sort_records
+
+    out = pathlib.Path(out_dir)
+    for n_dp, n_hp, seed, kw in pipelines:
+        mesh = make_mesh(n_dp, n_hp)
+        _, local = make_example_inputs(mesh, seed=seed, **kw)
+        got = {k: collect_global(mesh, v,
+                                 AXES if k == "likelihoods" else ("dp",))
+               for k, v in pipeline_step(mesh)(*local).items()}
+        if rank == 0:
+            np.savez(out / f"pipe_{n_dp}x{n_hp}_{seed}.npz", **got)
+    for n_dp, n_hp, keys in sorts:
+        mesh = make_mesh(n_dp, n_hp)
+        ks, vs = sort_records(keys, np.arange(len(keys), dtype=np.int32),
+                              mesh)
+        if rank == 0:
+            np.savez(out / f"sort_{n_dp}x{n_hp}.npz", keys=ks, vals=vs)
+
+
+def spmd_suite(rank: int, workload: str, shapes, out_dir: str) -> None:
+    """One rank of the SPMD test: ``ChunkRunner`` over the whole workload
+    on each (n_dp, n_hp) mesh of ``shapes``; every rank saves the global
+    outputs it got as ``spmd_<n_dp>x<n_hp>_<rank>.npz``."""
+    from mgl_tpu_torch.parallel.launcher import ChunkRunner, load_workload
+    from mgl_tpu_torch.parallel.mesh import make_mesh
+
+    reads, haps, ref = load_workload(workload)
+    for n_dp, n_hp in shapes:
+        runner = ChunkRunner(make_mesh(n_dp, n_hp), haps, ref)
+        got = runner.run(reads, 0, len(reads["rslen"]))
+        np.savez(pathlib.Path(out_dir) / f"spmd_{n_dp}x{n_hp}_{rank}.npz",
+                 **got)
+
+
+def align_sort_rank(rank: int, ref: np.ndarray, reads: np.ndarray,
+                    out_dir: str) -> None:
+    """One rank of ``align_and_sort`` on a (world, 1) mesh on the CPU; rank
+    0 saves its keys and order as ``align_sort.npz``."""
+    from mgl_tpu_torch.parallel.mesh import make_mesh
+    from mgl_tpu_torch.pipelines.align_sort import align_and_sort
+    from mgl_tpu_torch.pipelines.mapper import ReferenceIndex
+
+    got = align_and_sort(ReferenceIndex.build(ref, k=16), reads,
+                         mesh=make_mesh(), device="cpu")
+    if rank == 0:
+        np.savez(pathlib.Path(out_dir) / "align_sort.npz", keys=got["keys"],
+                 order=got["order"])
+
+
+def elastic_worker(host: str, port: int, name: str, heartbeat_ttl: float
+                   ) -> int:
+    """A worker process of the transport's kill -9 test (the port's copy of
+    ``tests/helpers/elastic_worker.py``): each shard sleeps payload["t"]
+    seconds and returns payload["x"] squared; a payload whose "hang_for"
+    is this worker's name sleeps until the worker is killed."""
+    from mgl_tpu_torch.parallel.transport import run_worker
+
+    def work(payload):
+        if payload.get("hang_for") == name:
+            time.sleep(3600)
+        time.sleep(payload.get("t", 0))
+        return payload["x"] ** 2
+
+    n = run_worker((host, port), work, name, heartbeat_ttl=heartbeat_ttl)
+    print(f"{name} committed {n}", flush=True)
+    return n

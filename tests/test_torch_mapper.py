@@ -467,11 +467,23 @@ def test_stream_equals_map_reads_and_chunks(sim):
 
 
 def test_unported_options_raise(sim):
-    """A mesh is a later slice's (the sharded sort): it raises.  CIGAR mode
-    runs (tests/test_torch_mapper_cigar.py)."""
+    """No option is left unported: CIGAR mode runs
+    (tests/test_torch_mapper_cigar.py) and a mesh sorts
+    (tests/test_torch_parallel.py).  What still raises is a mesh the
+    process does not have: without a process group only 1 x 1 exists, and
+    a larger shape raises the JAX package's ValueError; the one-rank mesh
+    sorts as mesh=None does."""
+    from mgl_tpu_torch.parallel.mesh import make_mesh
+
     idx, _, reads, _ = sim
-    with pytest.raises(NotImplementedError, match="mesh"):
-        align_and_sort(idx, reads[:4], mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="mesh 2x1 != 1 devices"):
+        align_and_sort(idx, reads[:4], mesh=make_mesh(2, 1, device="cpu"),
+                       device="cpu")
+    got = align_and_sort(idx, reads[:4], mesh=make_mesh(1, 1, device="cpu"),
+                         device="cpu")
+    want = align_and_sort(idx, reads[:4], device="cpu")
+    for k in ("keys", "order"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_align_and_sort_equals_jax(sim):

@@ -184,9 +184,11 @@ def test_port_imports_nothing_of_the_jax_package():
 
 def test_slice_never_imports_jax(tmp_path):
     """Running both entry points of the port and the stream, in shared and
-    product mode, and the engine's use_double and fast_path modes, leaves
-    jax and every mgl_tpu module out of sys.modules (a fresh interpreter,
-    so no other test's import counts)."""
+    product mode, and the engine's use_double and fast_path modes, and
+    importing every module of the parallel layer and the checkpoint ledger
+    and running the sharded step on a one-rank mesh, leaves jax and every
+    mgl_tpu module out of sys.modules (a fresh interpreter, so no other
+    test's import counts)."""
     code = (
         "import sys, numpy as np\n"
         "from mgl_tpu_torch.api import (SmithWatermanAligner, PairHmmEngine,"
@@ -206,6 +208,13 @@ def test_slice_never_imports_jax(tmp_path):
         "for kw in ({'use_double': True}, {'fast_path': True}):\n"
         "    assert np.isfinite(PairHmmEngine(device='cpu', **kw)"
         ".compute_likelihoods(*batches[1])).all()\n"
+        "import mgl_tpu_torch.pipelines.checkpoint\n"
+        "from mgl_tpu_torch.parallel import (dryrun, elastic, launcher, mesh,"
+        " pipeline, sort, transport)\n"
+        "m1 = mesh.make_mesh(1, 1, device='cpu')\n"
+        "out = pipeline.pipeline_step(m1)("
+        "*pipeline.make_example_inputs(m1, r_per_dev=2, h_per_dev=2)[1])\n"
+        "assert out['likelihoods'].isfinite().all()\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'mgl_tpu')"
         " or m.startswith(('jax.', 'mgl_tpu.')))\n"
         "assert not bad, bad\n"
