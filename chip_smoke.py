@@ -32,10 +32,12 @@ processes on the card, and ``align_and_sort`` on the mesh.  Phases:
    pipelined kernels - banded and plane SW, per-pair, plane and shared
    PairHMM - at every warps-a-block count W, the plane PairHMM kernel at
    every W and rows a lane R, with the carry row in shared and in global
-   memory; the seed-extend kernel on the golden rows, a region's product
-   and its edge pairs; the window gather at every nibble shift and both
-   reference edges, flat and blocked, odd and even read lengths; the CIGAR
-   walk in all four strategies, across its SEG_CAP with overflowed pairs,
+   memory; the seed-extend kernel on the golden rows, a region's product,
+   its edge pairs and the edges of its offsets-on-lanes design; the
+   window gather at every nibble shift and both reference edges, flat and
+   blocked, odd and even read lengths; the CIGAR walk in all four
+   strategies, across its SEG_CAP with overflowed pairs, on indels of
+   9-47 bases at band edges that leave its windows, on walks cut short,
    on pairs with zero starts and on a chunk of 8,192 windows);
 3. all SW golden cases, CIGAR and offset exact;
 4. PairHMM known answers and golden rows through the cascade, and
@@ -65,7 +67,9 @@ processes on the card, and ``align_and_sort`` on the mesh.  Phases:
    the banded f32 kernel on the same pairs, with its R x W sweep; the
    seed-extend kernel and the f64 per-pair kernel at a region's 6,144
    pairs; the window gather at one mapper chunk; the CIGAR walk at one
-   traceback chunk of 8,192 windows, with the post-pass's host time;
+   traceback chunk of 8,192 windows, with the post-pass's host time; the
+   seed-extend and walk kernels' launch geometry, shared memory,
+   registers and spills (a spill fails the phase);
 9a. ``parallel/pipeline.pipeline_step`` at a real size on a one-rank NCCL
    mesh (see :func:`run_step`): every output bit-equal to the same step on
    the CPU, both kernels against their plain versions at its shapes, the
@@ -509,8 +513,10 @@ def walk_steps(segs, tail, over, I0, J0) -> int:
 def compare_walk(dev) -> tuple[float, str]:
     """The CIGAR walk kernel vs its plain version on the card, bit for bit,
     on traceback words of the banded SW kernel: the 96 reads of
-    ``testing.indel_read_set`` and the deletion sweep across SEG_CAP
-    (``deletion_sweep_set``, overflowed pairs present) in all four
+    ``testing.indel_read_set``, the deletion sweep across SEG_CAP
+    (``deletion_sweep_set``, overflowed pairs present) and the 36 reads of
+    ``walk_window_set`` (indels of 9-47 bases at band edges, which leave
+    the kernel's windows; also cut short at 37 and 100 steps) in all four
     strategies, pairs whose start has I or J at 0, and one full chunk of
     8,192 windows of 198 x 150 (reads at 1% substitutions, 2% with a
     deletion, against a 4 Mbp reference).  Raises on a difference;
@@ -523,7 +529,8 @@ def compare_walk(dev) -> tuple[float, str]:
     from mgl_tpu_torch.ops.cigar_device import cigar_walk_plain
     from mgl_tpu_torch.pipelines import mapper as mp
     from mgl_tpu_torch.testing import (ACGT, deletion_reads,
-                                       deletion_sweep_set, indel_read_set)
+                                       deletion_sweep_set, indel_read_set,
+                                       walk_window_set)
 
     params = SWParameters(*SW_PARAMS)
     rng = np.random.default_rng(43)
@@ -536,6 +543,7 @@ def compare_walk(dev) -> tuple[float, str]:
     for label, (r, starts, rd, wl) in (("indel", indel_read_set()),
                                         ("SEG_CAP sweep",
                                          deletion_sweep_set()),
+                                        ("window", walk_window_set()),
                                         ("8,192-window chunk", chunk_set)):
         index = mp.ReferenceIndex.build(r, k=16)
         n_over = {}
@@ -558,10 +566,19 @@ def compare_walk(dev) -> tuple[float, str]:
                 first8 = (words[:8].clone(), ez[:, :8].clone(),
                           args[2][:8].clone(), args[3][:8].clone(), wpb,
                           n_steps)
+            if label == "window" and s == OverhangStrategy.SOFTCLIP:
+                for cut in (37, 100):        # walks that n_steps cuts off
+                    got = cigar_walk(*args, s, cut, words_per_band=wpb)
+                    want = cigar_walk_plain(*args, strategy=int(s),
+                                            n_steps=cut, words_per_band=wpb)
+                    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                        raise AssertionError(f"CIGAR walk != plain (window, "
+                                             f"cut at {cut} steps)")
         if label == "SEG_CAP sweep" and not n_over["SOFTCLIP"]:
             raise AssertionError("CIGAR walk: the SEG_CAP sweep overflowed "
                                  "no pair")
-        held.append(f"{label} {len(rd)} pairs (overflowed {n_over})")
+        held.append(f"{label} {len(rd)} pairs (overflowed {n_over}"
+                    f"{'; also cut at 37 and 100 steps' if label == 'window' else ''})")
     # pairs 0-2 start at I = 0, J = 0 or both (SOFTCLIP reads max_t,
     # max_q); pairs 3-4 at tlen = 0 or qlen = 0 (INDEL)
     words, ez, tl, ql, wpb, n_steps = first8
@@ -1092,6 +1109,7 @@ def main() -> int:
                                        no_hit_region, pair_edge_set,
                                        plane_outputs,
                                        queued_ms, seed_extend_edge_set,
+                                       seed_extend_order_set,
                                        shared_on_and_off, snp,
                                        sw_pairs,
                                        sw_tensors, timed_calls,
@@ -1309,14 +1327,16 @@ def main() -> int:
         raise AssertionError(f"shared kernel: the carry row did not take "
                              f"both placements: {placed}")
     # the seed-extend kernel: the golden rows, one region's full product,
-    # and the edge pairs (haplen < rslen, haplen == rslen, a one-base read,
+    # the edge pairs (haplen < rslen, haplen == rslen, a one-base read,
     # N in reads and haps, a 30 kb hap, a Q0 base whose one mismatch adds
-    # NaN)
+    # NaN) and the edges of its design (reads of 1-257 bases at 1-270
+    # offsets, tandem repeats, N at one position in read and hap)
     region_n = normalize(*engine_region(100))
     se_sets = [("golden rows", gn_reads, gn_haps, diag),
                ("a 512 x 12 region", *region_n,
                 [(r, h) for r in range(512) for h in range(12)]),
-               ("edge pairs", *seed_extend_edge_set(3))]
+               ("edge pairs", *seed_extend_edge_set(3)),
+               ("the offsets-on-lanes edges", *seed_extend_order_set(4))]
     for label, rs, hs, ps in se_sets:
         err["seed_extend_f32"] = max(err["seed_extend_f32"], compare_seed_extend(
             stage_fast(rs, hs, ps, dev)))
@@ -1989,6 +2009,17 @@ def main() -> int:
     ms["seed_extend_f32"], plain_ms["seed_extend_f32"] = k_ms, p_ms
     bounds["seed_extend_f32"] = (b_ms, b_by)
     regs = _build.kernel_resources("seed_extend")
+    if not regs or any(r.get("spill_stores", 0) or r.get("spill_loads", 0)
+                       for r in regs):
+        raise AssertionError(f"the seed-extend kernel spills or is not in "
+                             f"the build log: {regs}")
+    geo = se.seed_extend_layout(len(region_pairs), a_se[0].shape[1],
+                                a_se[4].shape[1])
+    log(f"    seed_extend_f32 launch: {geo['blocks']} blocks of "
+        f"{geo['threads'] // 32} warps (a warp a pair), "
+        f"{geo['blocks'] * geo['threads'] / 32 / sms:.1f} warps an SM over "
+        f"the launch, {geo['shared_bytes']} B of dynamic shared memory a "
+        f"block (the read and hap of each warp)")
     log(f"    seed_extend_f32 {len(region_pairs)} pairs 151x420 ("
         f"{work} read positions compared up to each offset's second "
         f"mismatch, {n_off} offsets): kernel {k_ms:.4f} ms; plain torch {p_ms:.3f} ms; bound "
@@ -2151,9 +2182,10 @@ def main() -> int:
     # the CIGAR walk at one traceback chunk of 8,192 windows: phase 7c's
     # traceback-tier reads (~2% of 262,144, so under a chunk) and certified
     # reads after them, through the gather and sw_banded in traceback mode
-    # as sw_cigar_windows runs them; then the post-pass's host time at that
-    # chunk split into the walk (launch to sync), the fetch of its small
-    # outputs and finish_cigars, and the bytes fetched
+    # as sw_cigar_windows runs them, the kernel timed by queued_ms (its
+    # wrapper's host time exceeds its device time); then the post-pass's
+    # host time at that chunk split into the walk (launch to sync), the
+    # fetch of its small outputs and finish_cigars, and the bytes fetched
     from mgl_tpu_torch.kernels.cigar_walk_cuda import walk_bytes
     from mgl_tpu_torch.kernels.pairhmm_cuda import to_host
     from mgl_tpu_torch.ops.cigar_device import (SEG_CAP, cigar_walk_plain,
@@ -2172,7 +2204,7 @@ def main() -> int:
     run = lambda: cw.cigar_walk(*w_args, soft, n_steps, words_per_band=c_wpb)
     run_p = lambda: cigar_walk_plain(*w_args, strategy=int(soft),
                                      n_steps=n_steps, words_per_band=c_wpb)
-    k_ms = cuda_ms(run, 20)
+    k_ms = queued_ms(run, 20)
     p_ms = cuda_ms(run_p, 2)
     got, want = run(), run_p()
     if not all(torch.equal(a, b) for a, b in zip(got, want)):
@@ -2200,6 +2232,17 @@ def main() -> int:
         for k, v in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
             split[k].append(round(v * 1e3, 3))
     regs = _build.kernel_resources("cigar_walk")
+    if not regs or any(r.get("spill_stores", 0) or r.get("spill_loads", 0)
+                       for r in regs):
+        raise AssertionError(f"the CIGAR walk kernel spills or is not in "
+                             f"the build log: {regs}")
+    geo = cw.walk_layout(nb)
+    log(f"    cigar_walk launch: {geo['blocks']} blocks of "
+        f"{geo['threads'] // 32} warps ({geo['lanes']} lanes a pair, "
+        f"{geo['threads'] // geo['lanes']} pairs a block), "
+        f"{geo['blocks'] * geo['threads'] / 32 / sms:.1f} warps an SM over "
+        f"the launch, {geo['shared_bytes']} B of shared memory a block (two "
+        f"windows a pair)")
     log(f"    cigar_walk {nb} traceback windows of {c_wlen} x "
         f"{MAP_READ_LEN} ({min(n_tier, nb)} tier reads, the rest "
         f"certified; {steps} steps walked, {int(got[2].sum())} "

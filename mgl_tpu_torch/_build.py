@@ -70,8 +70,10 @@ _ENTRIES = {
     "mgl_pairhmm_plane_f32": [_P] * 8 + [_I] * 6 + [_P] * 3,
     "mgl_pairhmm_plane_carry_in_shared": [_I] * 4,
     "mgl_seed_extend": [_P] * 8 + [_I] * 3 + [_P] * 2,
+    "mgl_seed_extend_layout": [_I] * 3 + [_P],
     "mgl_window_gather": [_P] * 5 + [_I64] + [_I] * 4 + [_P] * 3,
     "mgl_cigar_walk": [_P] * 4 + [_I, _I64] + [_I] * 4 + [_P] * 4,
+    "mgl_cigar_walk_layout": [_I, _P],
 }
 _HOST_ENTRIES = {
     "cigar_decode_batch": [_I, _P, _I64, _I64, _P, _P, _I, _P, _P, _P, _P,

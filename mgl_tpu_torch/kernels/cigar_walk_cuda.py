@@ -10,6 +10,8 @@ banded SW kernel's traceback words and ScoreMax rows as
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from mgl_tpu_torch import _build
@@ -54,8 +56,10 @@ def cigar_walk(words: torch.Tensor, ez: torch.Tensor, tlen: torch.Tensor,
     padded so that G = bands x ``words_per_band``; ``tlen`` / ``qlen``
     (B,) int32.  A pair's start (from ``ez`` or its lengths, by
     ``strategy``) must lie inside that layout, as the SW kernel leaves it:
-    the kernel does not check (that would synchronise).  On the card one
-    thread a pair, launched on the current stream, not synchronised."""
+    the kernel does not check (that would synchronise).  On the card a
+    group of lanes a pair, stepping through windows of its words copied
+    to shared memory a band ahead (:func:`walk_layout`); launched on the
+    current stream, not synchronised."""
     strategy = int(strategy)
     _check_walk(words, ez, tlen, qlen, strategy, n_steps, words_per_band,
                 seg_cap)
@@ -69,6 +73,8 @@ def cigar_walk(words: torch.Tensor, ez: torch.Tensor, tlen: torch.Tensor,
         raise ValueError("the CIGAR walk kernel needs pairs, got none")
     dev = words.device
     args = [x.contiguous() for x in (words, ez, tlen, qlen)]
+    if args[0].data_ptr() % 16:       # the kernel copies 16 B at a time
+        args[0] = args[0].clone()
     segs = torch.empty((B, seg_cap), dtype=torch.int32, device=dev)
     tail = torch.empty((B, 5), dtype=torch.int32, device=dev)
     over = torch.empty((B,), dtype=torch.bool, device=dev)
@@ -84,6 +90,15 @@ def cigar_walk(words: torch.Tensor, ez: torch.Tensor, tlen: torch.Tensor,
 
 
 cigar_walk.launches = 0
+
+
+def walk_layout(n_pairs: int) -> dict:
+    """The kernel's launch for ``n_pairs`` pairs, as the launcher
+    computes it: blocks, threads a block, shared bytes a block and lanes
+    a pair."""
+    geo = (ctypes.c_int * 4)()
+    _build.load_library().mgl_cigar_walk_layout(n_pairs, geo)
+    return dict(zip(("blocks", "threads", "shared_bytes", "lanes"), geo))
 
 
 def walk_bytes(steps: int, n_pairs: int, seg_cap: int = SEG_CAP) -> int:

@@ -10,6 +10,8 @@ calls it: the engine's tier-0 pass under ``fast_path``.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -26,8 +28,10 @@ def seed_extend_f32(rbases, rslen, corr, rm, haps, haplen, ridx, hidx
     ``haps`` (n_haps, H) uint8, ``haplen`` (n_haps,) int32 <= H,
     ``ridx``/``hidx`` (B,) int64 below n_reads / n_haps (not checked on
     the card: that would synchronise), as
-    :func:`mgl_tpu_torch.ops.seed_extend.stage_fast` gives them.  One
-    warp a pair; launched on the current stream, not synchronised."""
+    :func:`mgl_tpu_torch.ops.seed_extend.stage_fast` gives them.  On the
+    card a warp a pair, its read and hap staged in shared memory and one
+    hap offset a lane (:func:`seed_extend_layout`); launched on the
+    current stream, not synchronised."""
     n_r, R = rbases.shape
     n_h, H = haps.shape
     B = ridx.shape[0]
@@ -64,6 +68,16 @@ def seed_extend_f32(rbases, rslen, corr, rm, haps, haplen, ridx, hidx
 
 
 seed_extend_f32.launches = 0
+
+
+def seed_extend_layout(n_pairs: int, r_stride: int, h_stride: int) -> dict:
+    """The kernel's launch for ``n_pairs`` pairs of (n, r_stride) reads
+    and (m, h_stride) haps, as the launcher computes it: blocks, threads
+    a block and dynamic shared bytes a block."""
+    geo = (ctypes.c_int * 3)()
+    _build.load_library().mgl_seed_extend_layout(n_pairs, r_stride, h_stride,
+                                                 geo)
+    return dict(zip(("blocks", "threads", "shared_bytes"), geo))
 
 
 def fast_scores(reads: list[dict], haps: list[np.ndarray],

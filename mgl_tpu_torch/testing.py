@@ -204,6 +204,14 @@ def pair_edge_set(seed: int, read_lens, hap_lens
     return reads, haps, pairs
 
 
+def _fast_read(rng, b: np.ndarray) -> dict:
+    """A read of bases ``b`` for the seed-extend scorer: random base
+    qualities of 10-49, gap qualities 45, GCP 10."""
+    q = rng.integers(10, 50, len(b)).astype(np.uint8)
+    return dict(bases=b, q=q, i=np.full(len(b), 45, np.uint8),
+                d=np.full(len(b), 45, np.uint8), c=np.full(len(b), 10, np.uint8))
+
+
 def seed_extend_edge_set(seed: int, long_hap: int = 30_000
                          ) -> tuple[list[dict], list[np.ndarray], list[tuple]]:
     """Reads and haps at the seed-extend scorer's edges, all pairs
@@ -225,14 +233,61 @@ def seed_extend_edge_set(seed: int, long_hap: int = 30_000
     n_read[[3, 60]] = ord("N")
     bases = [base[7:57].copy(), base[:40].copy(), base[5:6].copy(), n_read,
              snp(base[100:251], 70)]
-    reads = []
-    for b in bases:
-        q = rng.integers(10, 50, len(b)).astype(np.uint8)
-        reads.append(dict(bases=b, q=q, i=np.full(len(b), 45, np.uint8),
-                          d=np.full(len(b), 45, np.uint8),
-                          c=np.full(len(b), 10, np.uint8)))
+    reads = [_fast_read(rng, b) for b in bases]
     reads[-1]["q"][70] = 0
     pairs = [(r, h) for r in range(len(reads)) for h in range(len(haps))]
+    return reads, haps, pairs
+
+
+def seed_extend_order_set(seed: int
+                          ) -> tuple[list[dict], list[np.ndarray], list[tuple]]:
+    """Pairs at the edges of the seed-extend kernel's offsets-on-lanes
+    design (listed pairs, not a product):
+
+    - reads of 1, 8, 9, 255, 256 and 257 bases (words of four bases, a
+      word boundary on each side of 8 and 256), each copied from base 13
+      of a random sequence and paired with haps of that sequence that give
+      it 1, 31, 32, 33 and 270 offsets (a step of 32 offsets a warp, and
+      one past it): the read equals its hap at offset 13, not a multiple
+      of 8 (or at offset 0 where it has one);
+    - tandem-repeat haps (periods 3 and 7) with reads cut from them, one
+      with a SNP: every offset of the read's phase matches with 0 or 1
+      mismatches, so many offsets of one step add to the sum;
+    - N at the same position in read and hap at the matching offset, an N
+      in the read only and an N in the hap only.
+
+    Bases are uppercase ACGTN, as the engine normalizes them."""
+    rng = np.random.default_rng(seed)
+    base = rng.choice(ACGT, 900)
+    reads: list[dict] = []
+    haps: list[np.ndarray] = []
+    pairs: list[tuple] = []
+    for rl in (1, 8, 9, 255, 256, 257):
+        reads.append(_fast_read(rng, base[13:13 + rl].copy()))
+        for n_off in (1, 31, 32, 33, 270):
+            st = 13 if n_off == 1 else 0
+            haps.append(base[st:st + rl + n_off - 1].copy())
+            pairs.append((len(reads) - 1, len(haps) - 1))
+    for period in (3, 7):
+        unit = rng.choice(ACGT, period)
+        hap = np.tile(unit, 500 // period + 1)[:500]
+        haps.append(hap)
+        for st, rl, mut in ((2, 9, None), (5, 100, None), (1, 256, None),
+                            (4, 150, 77)):
+            b = hap[st:st + rl].copy()
+            if mut is not None:
+                b = snp(b, mut)
+            reads.append(_fast_read(rng, b))
+            pairs.append((len(reads) - 1, len(haps) - 1))
+    n_hap = base[100:400].copy()
+    n_hap[13 + 40] = ord("N")
+    n_hap[13 + 90] = ord("N")
+    haps.append(n_hap)
+    for n_at in ((40,), (60,), (40, 90), ()):
+        b = base[113:263].copy()
+        b[list(n_at)] = ord("N")
+        reads.append(_fast_read(rng, snp(b, 120) if not n_at else b))
+        pairs.append((len(reads) - 1, len(haps) - 1))
     return reads, haps, pairs
 
 
@@ -431,6 +486,41 @@ def deletion_sweep_set() -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
             span += take + 2                      # a 2 bp deletion
         reads[i] = np.concatenate(parts)[:L]
     return ref, (tp - pad).astype(np.int64), reads, wlen
+
+
+def walk_window_set() -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """Reads that take the CIGAR walk kernel out of its windows: 36 of
+    150 bp in windows of 198, half with one insertion of 9-40 bases and
+    half with one deletion of 9-47 bases (as long as the window's 48 bases
+    of slack allow: the window starts (48 - D) // 2 before the read), each
+    event at target row 32k - 1, 32k or 32k + 1 of the window (k = 2, 3,
+    4), so that its run crosses a band's edge or starts on one:
+    (ref, window starts, reads, wlen)."""
+    rng = np.random.default_rng(29)
+    ref = rng.choice(ACGT, size=40_000)
+    L, wlen = 150, 198
+    rows = [32 * k + e for k in (2, 3, 4) for e in (-1, 0, 1)]
+    ins = (9, 12, 17, 24, 31, 40)
+    dels = (9, 16, 24, 33, 40, 47)
+    tp = rng.integers(64, len(ref) - 2 * wlen, 36)
+    reads = np.zeros((36, L), np.uint8)
+    starts = np.zeros(36, np.int64)
+    for i in range(36):
+        s, row = int(tp[i]), rows[i % len(rows)]
+        if i < 18:
+            n = ins[i % len(ins)]
+            pad = 24
+            a = row - pad
+            r = np.concatenate([ref[s:s + a], rng.choice(ACGT, n),
+                                ref[s + a:s + L]])
+        else:
+            n = dels[i % len(dels)]
+            pad = (48 - n) // 2
+            a = row - pad
+            r = np.concatenate([ref[s:s + a], ref[s + a + n:s + L + n]])
+        reads[i] = r[:L]
+        starts[i] = s - pad
+    return ref, starts, reads, wlen
 
 
 def deletion_reads(seed: int, ref: np.ndarray, n_reads: int, read_len: int,

@@ -9,7 +9,9 @@ What is held:
   ``tests/test_mapper_scale.py:116`` (96 reads: deletions, insertions,
   clipped and multi-event reads, all four strategies) and ``:160`` (the
   10-17-deletion sweep across SEG_CAP, SOFTCLIP and INDEL), copied into
-  ``mgl_tpu_torch.testing`` (``indel_read_set``, ``deletion_sweep_set``);
+  ``mgl_tpu_torch.testing`` (``indel_read_set``, ``deletion_sweep_set``),
+  and on ``walk_window_set`` (insertions of 9-40 and deletions of 9-47
+  bases at band edges, all four strategies, and cut short by n_steps);
 - the overflow boundary: a CIGAR of S non-clip runs overflows iff
   S >= SEG_CAP + 2;
 - ``finish_cigars`` equals the JAX one;
@@ -28,7 +30,8 @@ from mgl_tpu_torch.native import cigar_decode_bulk_banded
 from mgl_tpu_torch.ops import cigar_device as C
 from mgl_tpu_torch.ops.sw import BAND, EZ_KEYS
 from mgl_tpu_torch.pipelines import mapper as M
-from mgl_tpu_torch.testing import deletion_sweep_set, indel_read_set
+from mgl_tpu_torch.testing import (deletion_sweep_set, indel_read_set,
+                                   walk_window_set)
 
 PARAMS = SWParameters(25, -50, 110, 6)
 STRATEGIES = tuple(OverhangStrategy)
@@ -44,7 +47,8 @@ def cuda():
     return torch.device("cuda")
 
 
-SETS = {"indel": indel_read_set, "sweep": deletion_sweep_set}
+SETS = {"indel": indel_read_set, "sweep": deletion_sweep_set,
+        "window": walk_window_set}
 _cache: dict = {}
 
 
@@ -90,7 +94,8 @@ def walk(name, strategy):
 
 @pytest.mark.parametrize("name,strategy", [("indel", s) for s in STRATEGIES]
                          + [("sweep", OverhangStrategy.SOFTCLIP),
-                            ("sweep", OverhangStrategy.INDEL)])
+                            ("sweep", OverhangStrategy.INDEL)]
+                         + [("window", s) for s in STRATEGIES])
 def test_walk_plain_equals_jax(name, strategy):
     """cigar_walk on CPU tensors (its plain version) equals the JAX
     package's _walk_segments in segs, tail and over."""
@@ -108,6 +113,22 @@ def test_walk_plain_equals_jax(name, strategy):
         dtype=torch.float32) > 0.5
     if name == "sweep":
         assert over.any() and not over.all()
+    if name == "window":           # every pair walks an indel of 9+ bases
+        runs = torch.where(segs & 3 != 0, segs >> 2, 0).amax(dim=1)
+        assert (runs >= 9).all()
+
+
+@pytest.mark.parametrize("n_steps", [37, 100])
+def test_walk_cut_short_equals_jax(n_steps):
+    """Walks that n_steps cuts off (inside the first band, and inside a
+    long indel or after it) equal the JAX package's, flagged over."""
+    s = OverhangStrategy.SOFTCLIP
+    ez, words, wpb, tl, ql, _ = traceback("window", s)
+    got = cigar_walk(words, ez, tl, ql, s, n_steps, words_per_band=wpb)
+    want = jax_walk(words, ez, tl, ql, wpb, s, n_steps)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b)
+    assert got[2].all() and (got[1][:, 2] > 0).all()
 
 
 def test_overflow_boundary():
@@ -208,8 +229,9 @@ def test_walk_refuses_bad_inputs():
 @pytest.mark.cuda
 def test_walk_kernel_matches_plain(cuda):
     """The walk kernel equals its plain version bit for bit on the card:
-    both fixtures in every strategy (overflowed pairs included) and the
-    zero-start pairs; the launch counter moves once a call."""
+    the three fixtures in every strategy (overflowed pairs included), the
+    window set's walks cut short, and the zero-start pairs; the launch
+    counter moves once a call."""
     cases = [(n, s) for n in SETS for s in STRATEGIES]
     for name, s in cases:
         ez, words, wpb, tl, ql, n_steps = traceback(name, s)
@@ -221,6 +243,14 @@ def test_walk_kernel_matches_plain(cuda):
         want = C.cigar_walk_plain(*args, strategy=int(s), n_steps=n_steps,
                                   words_per_band=wpb)
         assert all(torch.equal(a, b) for a, b in zip(got, want)), (name, s)
+    ez, words, wpb, tl, ql, _ = traceback("window", OverhangStrategy.SOFTCLIP)
+    args = [x.to(cuda) for x in (words, ez, tl, ql)]
+    for n_steps in (37, 100):
+        got = cigar_walk(*args, OverhangStrategy.SOFTCLIP, n_steps,
+                         words_per_band=wpb)
+        want = C.cigar_walk_plain(*args, strategy=int(OverhangStrategy.SOFTCLIP),
+                                  n_steps=n_steps, words_per_band=wpb)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), n_steps
     args, wpb, n_steps = zero_start_inputs(cuda)
     for s in (OverhangStrategy.SOFTCLIP, OverhangStrategy.INDEL):
         got = cigar_walk(*args, s, n_steps, words_per_band=wpb)

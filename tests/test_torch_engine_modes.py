@@ -1,7 +1,8 @@
 """PairHmmEngine's two modes in the port, against the JAX package:
 ``use_double`` (every pair through the f64 tier) and ``fast_path`` (the
 seed-extend estimator first), with the port's copies of ``set_mm_prob``
-and ``result_match``, the plain seed-extend scorer, the cascade's
+and ``result_match``, the plain seed-extend scorer (on the goldens, the
+edge pairs and the kernel design's edges), the cascade's
 routing, the stream and duplicate haps; on a card, the seed-extend kernel
 against its plain version, both modes against ``device="cpu"`` and
 ``fast_path`` without hits through the shared kernel.
@@ -29,7 +30,8 @@ from mgl_tpu_torch.ops import seed_extend
 from mgl_tpu_torch.ops.pairhmm import normalize
 from mgl_tpu_torch.tables import CTX_F32, MIN_ACCEPTED
 from mgl_tpu_torch.testing import (engine_region, golden_read, no_hit_region,
-                                   same_scores, seed_extend_edge_set)
+                                   same_scores, seed_extend_edge_set,
+                                   seed_extend_order_set)
 
 torch.set_num_threads(1)
 
@@ -162,6 +164,29 @@ def test_fast_scores_plain_edge_pairs():
     assert out[1, 1] > 0                          # one offset, exact
     assert np.isinf(out[2, 4]) and np.isnan(out[4, 4])
     assert np.isfinite(out[:4, :4]).all()
+
+
+# the parts of seed_extend_order_set's pair list
+ORDER_PARTS = {"lengths": slice(0, 30), "tandem": slice(30, 38),
+               "ambiguous": slice(38, 42)}
+
+
+@pytest.mark.parametrize("part", list(ORDER_PARTS))
+def test_fast_scores_plain_order_set_equals_jax(part):
+    """The pairs at the edges of the kernel's offsets-on-lanes design
+    (seed_extend_order_set: reads of 1-257 bases at 1, 31, 32, 33 and 270
+    offsets, tandem repeats where many offsets of a step add, N in read
+    and hap) bit-equal to the JAX scorer; every pair has an offset with
+    at most one mismatch (a 9-base read over a period-3 repeat adds up to
+    inf)."""
+    from mgl_tpu.ops import seed_extend as jax_seed_extend
+
+    reads, haps, pairs = seed_extend_order_set(4)
+    pairs = pairs[ORDER_PARTS[part]]
+    got = _plain_fast(reads, haps, pairs)
+    want = jax_seed_extend.fast_scores(reads, haps, pairs)
+    assert same_scores(torch.from_numpy(got), torch.from_numpy(want.copy()))
+    assert not np.isnan(got).any() and (got > 0).all()
 
 
 def test_use_double_kat(pairhmm_kat):
@@ -297,11 +322,12 @@ def test_mode_duplicate_haps_are_copies(mode):
 @pytest.mark.cuda
 def test_seed_extend_kernel_matches_plain(cuda):
     """The seed-extend kernel against its plain version on the card, bit
-    for bit (NaN where it has NaN): the edge pairs with a 30 kb hap, and a
-    512 x 12 region's 6,144 pairs."""
+    for bit (NaN where it has NaN): the edge pairs with a 30 kb hap, the
+    pairs at the edges of its offsets-on-lanes design and a 512 x 12
+    region's 6,144 pairs."""
     reads, haps, pairs = seed_extend_edge_set(3)
     region = normalize(*engine_region(100))
-    for rs, hs, ps in ((reads, haps, pairs),
+    for rs, hs, ps in ((reads, haps, pairs), seed_extend_order_set(4),
                        (*region, [(r, h) for r in range(512)
                                   for h in range(12)])):
         args = seed_extend.stage_fast(rs, hs, ps, cuda)
