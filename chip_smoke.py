@@ -80,7 +80,16 @@ processes on the card, and ``align_and_sort`` on the mesh.  Phases:
 9c. the elastic map scale-out at config 4's shape (see
    :func:`run_map_scaleout`): phase 7b's workload through two
    ``map-worker --device cuda`` processes, one killed, equal to phase 7b;
-9d. ``align_and_sort`` on the one-rank mesh, equal to ``mesh=None``.
+9d. ``align_and_sort`` on the one-rank mesh, equal to ``mesh=None``;
+10. the size range (see :func:`run_size_range`): the JAX package's long
+   SW pairs (20 kbp x 5 kbp, 12 kbp x 6.5 kbp) and 64 pairs of up to
+   8,000 x 2,000 through ``align_batch`` in all four strategies, equal to
+   the plain path on the card; three long PairHMM sets (5.6 kbp and 16
+   kbp haps, 4 kb reads) through the engine in its three modes, against
+   the scalar oracle or bit-equal to ``device="cpu"``; and the mapper on
+   GRCh38's coordinate space (3.09 Gbp, half the reads past 2^31) in
+   score and CIGAR mode, with ``align_and_sort`` and ``write_sam``
+   checked against the truth.
 
 Any failed phase raises and the script exits non-zero.  The last line is
 one JSON object naming the device; the line before it lists the kernels
@@ -363,7 +372,8 @@ def compare_gather(dev) -> tuple[float, str]:
 
 def run_mapper(dev, drive, ref_len: int = MAP_REF_LEN,
                n_reads: int = MAP_READS, chunk: int = MAP_CHUNK,
-               read_len: int = MAP_READ_LEN, n_check: int = 1024) -> dict:
+               read_len: int = MAP_READ_LEN, n_check: int = 1024,
+               workload=None) -> dict:
     """Phase 7b: the read mapper at a realistic size, through its entry
     points on ``dev``.
 
@@ -382,7 +392,10 @@ def run_mapper(dev, drive, ref_len: int = MAP_REF_LEN,
     gather feeding ``sw_banded_plain``); align_and_sort's positions and
     scores equal the stream's, and its keys ascend and equal a stable
     NumPy argsort of the same keys.  Then a warm pass with the ``map.*``
-    stage times, and on a card the idle share over one warm chunk."""
+    stage times, and on a card the idle share over one warm chunk.
+
+    ``workload`` = (index, reads, true global starts) maps those instead
+    of a simulated reference (phase 10's GRCh38 coordinate space)."""
     import numpy as np
     import torch
 
@@ -399,12 +412,17 @@ def run_mapper(dev, drive, ref_len: int = MAP_REF_LEN,
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
-    t0 = time.perf_counter()
-    ref, reads, true_pos = simulate_reads(0, ref_len, n_reads, read_len)
-    t_sim = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    index = mp.ReferenceIndex.build(ref, k=16)
-    t_index = time.perf_counter() - t0
+    t_sim = t_index = 0.0
+    if workload is None:
+        t0 = time.perf_counter()
+        ref, reads, true_pos = simulate_reads(0, ref_len, n_reads, read_len)
+        t_sim = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        index = mp.ReferenceIndex.build(ref, k=16)
+        t_index = time.perf_counter() - t0
+    else:
+        index, reads, true_pos = workload
+        n_reads, read_len = reads.shape
 
     def main_path():
         out = mp.map_reads_stream(index, reads, chunk=chunk, device=dev)
@@ -481,7 +499,8 @@ def run_mapper(dev, drive, ref_len: int = MAP_REF_LEN,
             "mapped": float((pos >= 0).mean()),
             "exact": float((out["offset"] >= 0).mean()),
             "n_checked": len(pick), "stages": stages, "idle": idle,
-            "busy_ms": busy_ms, "chunk_wall": wall}
+            "busy_ms": busy_ms, "chunk_wall": wall, "inside": inside,
+            "srt": srt}
 
 
 # the CIGAR walk, counted as what the function needs: a step is one
@@ -600,7 +619,7 @@ def compare_walk(dev) -> tuple[float, str]:
 
 def run_cigar_mapper(dev, drive, index, n_reads: int = MAP_READS,
                      chunk: int = MAP_CHUNK, read_len: int = MAP_READ_LEN,
-                     n_check: int = 1024) -> dict:
+                     n_check: int = 1024, workload=None) -> dict:
     """Phase 7c: the read mapper in CIGAR mode at a realistic size, through
     ``map_reads_stream(with_cigar=True)`` on ``dev``.
 
@@ -620,7 +639,13 @@ def run_cigar_mapper(dev, drive, index, n_reads: int = MAP_READS,
     ``cigar_walk_plain``, ``finish_cigars`` and the host decoder for
     overflowed walks - and ``n_check`` sampled tier reads those of the
     host decoder on the kernels' own words.  Then a warm pass with the
-    ``map.*`` stage times, and the idle share over one warm chunk."""
+    ``map.*`` stage times, and the idle share over one warm chunk.
+
+    ``workload`` = (reads, del_idx, true starts) maps those reads with
+    ``index`` instead (phase 10's GRCh38 coordinate space); the D check
+    then covers the deletion reads whose window holds their true start (a
+    deletion read whose seeds voted for another locus has no D to find
+    there)."""
     import numpy as np
     import torch
 
@@ -639,8 +664,13 @@ def run_cigar_mapper(dev, drive, index, n_reads: int = MAP_READS,
     params = SWParameters(*SW_PARAMS)
     L = read_len
     t0 = time.perf_counter()
-    reads, _, del_idx = deletion_reads(4, index.ref, n_reads, L,
-                                       del_frac=MAP_DEL_FRAC)
+    true_pos = None
+    if workload is None:
+        reads, _, del_idx = deletion_reads(4, index.ref, n_reads, L,
+                                           del_frac=MAP_DEL_FRAC)
+    else:
+        reads, del_idx, true_pos = workload
+        n_reads, L = reads.shape
     t_sim = time.perf_counter() - t0
 
     def main_path():
@@ -657,8 +687,11 @@ def run_cigar_mapper(dev, drive, index, n_reads: int = MAP_READS,
     mapped = np.nonzero(pos >= 0)[0]
     if not all(out["cigar"][mapped]):
         raise AssertionError("CIGAR mapper: a mapped read has no CIGAR")
-    no_d = [int(i) for i in del_idx if pos[i] >= 0 and "D" not in
-            out["cigar"][i]]
+    del_on = del_idx[pos[del_idx] >= 0]
+    if true_pos is not None:
+        del_on = del_on[(true_pos[del_on] >= pos[del_on])
+                        & (true_pos[del_on] <= pos[del_on] + wlen - L)]
+    no_d = [int(i) for i in del_on if "D" not in out["cigar"][i]]
     if no_d:
         raise AssertionError(f"CIGAR mapper: {len(no_d)} mapped deletion "
                              f"reads without a D, e.g. "
@@ -753,6 +786,7 @@ def run_cigar_mapper(dev, drive, index, n_reads: int = MAP_READS,
             "certified": int(cert.sum()), "tier": tier,
             "cert_idx": mapped[cert], "n_over": n_over,
             "n_del": len(del_idx), "t_plain": t_plain, "n_check": len(pick),
+            "n_del_off": int((pos[del_idx] >= 0).sum()) - len(del_on),
             "reads": reads, "out": out, "wlen": wlen, "stages": stages,
             "tb_warm": int(snap["counters"].get("map.tb_reads", 0)),
             "idle": idle, "busy_ms": busy_ms, "chunk_wall": wall,
@@ -1075,6 +1109,381 @@ def run_map_scaleout(tmp: pathlib.Path, mapper: dict) -> dict:
              (v_err + err).splitlines()
              if "built the index" in line or "mapped chunk" in line]
     return {"t_dist": t_dist, "times": times, "stats": stats}
+
+
+# phase 10, the size range: the JAX package's long shapes through both GATK
+# entry points, and the mapper on GRCh38's coordinate space
+SIZE_SW_SAMPLE = 8         # pairs of the 8000x2000 batch held to the plain path
+GENOME_READS = 131_072     # reads on GRCh38's coordinate space, one chunk
+GENOME_CHECK = 1024        # SAM records checked against the truth
+
+
+def sw_call_split(targets, queries, strategy, dev) -> dict:
+    """One bucket through ``align_batch_banded``'s steps, timed on the host
+    clock with a sync after each: staging (packing and H2D), the banded
+    kernel, the D2H of ez and the traceback words, the host decoder; with
+    the bytes copied back and the (cigar, offset) results."""
+    import numpy as np
+    import torch
+
+    from mgl_tpu_torch.core.params import OverhangStrategy
+    from mgl_tpu_torch.kernels import sw_cuda
+    from mgl_tpu_torch.ops.sw import banded_layout
+    from mgl_tpu_torch.testing import sw_tensors
+
+    indel = bool(strategy & (OverhangStrategy.INDEL
+                             | OverhangStrategy.LEADING_INDEL))
+    t = [time.perf_counter()]
+    args = sw_tensors(targets, queries, dev)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    ez, words = sw_cuda.sw_banded(*args, *SW_PARAMS, indel_init=indel)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    ez_h, words_h = ez.cpu().numpy(), words.cpu().numpy()
+    t.append(time.perf_counter())
+    tlen = np.array([len(x) for x in targets], np.int32)
+    qlen = np.array([len(x) for x in queries], np.int32)
+    res = sw_cuda.decode_cigars(ez_h, words_h, tlen, qlen, strategy,
+                                banded_layout(args[0].shape[1],
+                                              args[1].shape[1])[1])
+    t.append(time.perf_counter())
+    return {"stage_s": t[1] - t[0], "kernel_s": t[2] - t[1],
+            "d2h_s": t[3] - t[2], "decode_s": t[4] - t[3],
+            "d2h_bytes": ez_h.nbytes + words_h.nbytes, "res": res}
+
+
+def run_size_sw(dev, drive, card) -> tuple[dict, list]:
+    """Phase 10, SW, on the card: the JAX package's long pairs (20 kbp x 5
+    kbp and 12 kbp x 6.5 kbp, ``testing.LONG_SW_PAIRS``) and a batch of 64
+    pairs of up to 8,000 x 2,000 (48 of them in one bucket) through
+    ``SmithWatermanAligner(device=cuda).align_batch`` in all four
+    strategies, each shape's peak device memory, and one SOFTCLIP call of
+    its largest bucket split into staging, kernel, D2H (bytes) and host
+    decode.  Returns (the launches, what :func:`check_size_sw` holds to
+    the plain path)."""
+    import torch
+
+    from mgl_tpu_torch.api import (OverhangStrategy, SmithWatermanAligner,
+                                   SWParameters)
+    from mgl_tpu_torch.batch.bucketing import bucket_pairs
+    from mgl_tpu_torch.testing import LONG_SW_SHAPES, long_sw_shape
+
+    params = SWParameters(*SW_PARAMS)
+    aligner = SmithWatermanAligner(device=dev)
+    total, runs = {}, []
+    for name in LONG_SW_SHAPES:
+        targets, queries = long_sw_shape(name)
+        torch.cuda.reset_peak_memory_stats(dev)
+        res, n, t_all = drive(lambda: {
+            s: aligner.align_batch(targets, queries, params, s)
+            for s in OverhangStrategy})
+        peak = torch.cuda.max_memory_allocated(dev)
+        if n["sw_banded"] < 1:
+            raise AssertionError(f"size range SW {name}: sw_banded never "
+                                 f"launched: {n}")
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+        buckets = bucket_pairs([len(x) for x in targets],
+                               [len(x) for x in queries])
+        (pt, pq), idx = max(buckets, key=lambda b: len(b[1]))
+        split = sw_call_split([targets[i] for i in idx],
+                              [queries[i] for i in idx],
+                              OverhangStrategy.SOFTCLIP, dev)
+        if split["res"] != [(res[OverhangStrategy.SOFTCLIP][i].cigar,
+                             res[OverhangStrategy.SOFTCLIP][i].offset)
+                            for i in idx]:
+            raise AssertionError(f"size range SW {name}: the timed bucket "
+                                 f"differs from align_batch")
+        call = sum(split[k] for k in ("stage_s", "kernel_s", "d2h_s",
+                                      "decode_s"))
+        runs.append((name, res, len(targets)))
+        log(f"[10 size range, SW] {name}: {len(targets)} pairs in "
+            f"{len(buckets)} buckets (largest {len(idx)} x {pt}x{pq}), "
+            f"align_batch in all four strategies {t_all:.3f} s, launches "
+            f"{ {k: v for k, v in n.items() if v} }; peak device memory "
+            f"{peak / 2**20:.1f} MiB; one SOFTCLIP call of the largest "
+            f"bucket {call * 1e3:.1f} ms: staging "
+            f"{split['stage_s'] * 1e3:.2f} ms, kernel "
+            f"{split['kernel_s'] * 1e3:.2f} ms, D2H of {split['d2h_bytes']} "
+            f"B {split['d2h_s'] * 1e3:.2f} ms, host decode "
+            f"{split['decode_s'] * 1e3:.2f} ms; card {card}")
+    return total, runs
+
+
+def check_size_sw(runs, plain_refs) -> None:
+    """Phase 10, SW, the check: each shape's CIGARs and offsets from
+    :func:`run_size_sw` equal the plain path's on the card in all four
+    strategies - every pair of the long pairs, 8 sampled pairs of the
+    batch (``testing.sw_plain_cigars``, whose results ``plain_refs(name)``
+    yields: a spawned process computes them on the card meanwhile)."""
+    from mgl_tpu_torch.api import OverhangStrategy
+    from mgl_tpu_torch.testing import long_sw_sample
+
+    for name, res, n_pairs in runs:
+        want, t_plain = plain_refs(name)
+        pick = long_sw_sample(n_pairs)
+        for s in OverhangStrategy:
+            got = [(res[s][i].cigar, res[s][i].offset) for i in pick]
+            if got != want[int(s)]:
+                bad = [k for k, (a, b) in enumerate(zip(got, want[int(s)]))
+                       if a != b]
+                raise AssertionError(
+                    f"size range SW {name} {s.name}: {len(bad)} of "
+                    f"{len(got)} pairs differ from the plain path, e.g. "
+                    f"{got[bad[0]][0][:80]} / {want[int(s)][bad[0]][0][:80]}")
+        log(f"    SW {name}: CIGARs and offsets of {len(pick)} pairs in all "
+            f"four strategies equal to the plain path's on the card "
+            f"({t_plain:.2f} s in a spawned process)")
+
+
+def run_size_pairhmm(dev, drive, card, cpu_refs) -> dict:
+    """Phase 10, PairHMM: the long sets of ``testing.LONG_PAIRHMM_SETS``
+    (three 250 bp reads against a 5.6 kbp and a 16 kbp hap, 4 reads of 4 kb
+    against 3 haps of 6 kb) through ``PairHmmEngine(device=cuda)`` in the
+    default mode, ``use_double`` and ``fast_path``.  On ``long_hap`` the
+    default and ``use_double`` within 1e-5 log10 of the port's scalar
+    oracle; every other (set, mode) bit-equal to ``device="cpu"``, whose
+    matrices ``cpu_refs`` yields (computed in worker processes while the
+    card runs).  Logs each run's wall time, peak device memory, the
+    shared-or-product choice and the rescued pairs.  Returns the
+    launches."""
+    import numpy as np
+    import torch
+
+    from mgl_tpu_torch.api import PairHmmEngine
+    from mgl_tpu_torch.ops.pairhmm import normalize, use_shared_kernel
+    from mgl_tpu_torch.ref_impl import pairhmm_scalar
+    from mgl_tpu_torch.testing import ENGINE_MODES, long_pairhmm
+    from mgl_tpu_torch.utils.metrics import METRICS
+
+    total = {}
+    for name in ("long_hap", "longer_hap", "long_read"):
+        reads, haps = long_pairhmm(name)
+        shared = use_shared_kernel([len(r["bases"]) for r in reads],
+                                   normalize(reads, haps)[1])
+        txt = []
+        for mode, kw in ENGINE_MODES.items():
+            METRICS.reset()
+            torch.cuda.reset_peak_memory_stats(dev)
+            got, n, t = drive(lambda: PairHmmEngine(
+                device=dev, **kw).compute_likelihoods(reads, haps))
+            peak = torch.cuda.max_memory_allocated(dev)
+            if not sum(n.values()):
+                raise AssertionError(f"size range {name} {mode}: no kernel "
+                                     f"launched")
+            for k, v in n.items():
+                total[k] = total.get(k, 0) + v
+            if not np.isfinite(got).all():
+                raise AssertionError(f"size range {name} {mode}: not finite")
+            if name == "long_hap" and mode != "fast_path":
+                t0 = time.perf_counter()
+                want = pairhmm_scalar.compute_likelihoods(reads, haps)
+                err = float(np.abs(got - want).max())
+                if err >= 1e-5:
+                    raise AssertionError(f"size range {name} {mode}: "
+                                         f"{err} log10 from the scalar oracle")
+                check = (f"max |log10 - scalar| {err:.3g} (oracle "
+                         f"{time.perf_counter() - t0:.1f} s)")
+            else:
+                want = cpu_refs(name, mode)
+                if not np.array_equal(got, want):
+                    raise AssertionError(
+                        f"size range {name} {mode}: card != device='cpu' "
+                        f"(max diff {np.abs(got - want).max()})")
+                check = "bit-equal to device='cpu'"
+            rescued = int(METRICS.snapshot()["timers_s"].get(
+                "engine.rescue", 0) > 0)
+            txt.append(f"{mode} {t:.3f} s, launches "
+                       f"{ {k: v for k, v in n.items() if v} }, peak "
+                       f"{peak / 2**20:.1f} MiB, rescue tier "
+                       f"{'ran' if rescued else 'not run'}, {check}")
+        r_len = sorted({len(r["bases"]) for r in reads})
+        log(f"[10 size range, PairHMM] {name}: {len(reads)} reads of "
+            f"{r_len} bp x {len(haps)} haps of "
+            f"{sorted({len(h) for h in haps})} bp, the estimate picks "
+            f"{'shared' if shared else 'product'} mode; "
+            f"{'; '.join(txt)}; card {card}")
+    return total
+
+
+def size_genome(dev) -> dict:
+    """Phase 10's mapper workload (see :func:`run_size_mapper`): GRCh38's
+    coordinate space with one 4 Mbp segment a contig, its reads, the index
+    by ``build_multi`` and the word-packed reference on ``dev``, with the
+    times each took."""
+    from mgl_tpu_torch.pipelines import mapper as mp
+    from mgl_tpu_torch.testing import genome_coords_reference, genome_reads
+
+    t0 = time.perf_counter()
+    contigs, seg = genome_coords_reference(0)
+    g = genome_reads(1, contigs, seg, GENOME_READS)
+    t_sim = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = mp.ReferenceIndex.build_multi(contigs, k=16)
+    t_index = time.perf_counter() - t0
+    del contigs
+    t0 = time.perf_counter()
+    mp._ref_device(index, dev)
+    return {"index": index, "g": g, "t_sim": t_sim, "t_index": t_index,
+            "t_ref": time.perf_counter() - t0}
+
+
+def run_size_mapper(dev, drive, card, tmp, genome) -> dict:
+    """Phase 10, the mapper on GRCh38's coordinate space: the 24 primary
+    contigs' lengths (``testing.GRCH38_CONTIGS``, 3,088,269,832 bases, chr13
+    across 2^31 and chr14-chrY past it), each 'N' but for one 4 Mbp
+    segment of simulated sequence, indexed by ``build_multi``; 131,072
+    reads of 150 bp drawn evenly over the segments on both strands at 1%
+    substitutions, 2% with a 1-2 bp deletion after base 70.  Runs phase
+    7b's checks (:func:`run_mapper`: score mode and ``align_and_sort``,
+    the true start in the window for 0.99 of reads, sampled scores against
+    the plain path, the sort against NumPy) and 7c's
+    (:func:`run_cigar_mapper`: the traceback tier against the plain path
+    and the host decoder), plus: the true contig and start in the window
+    for 0.99 of the reads past 2^31, and ``io/sam.write_sam``'s RNAME and
+    POS equal to the truth for 1,024 sampled reads whose window holds the
+    truth and whose first 12 bases match it (where an optimal alignment
+    starts at the true start).  ``genome`` is :func:`size_genome`'s.  Logs
+    the index build, the packed reference's upload, the host's peak RSS
+    and reads/s.  Returns the launches."""
+    import resource
+
+    import numpy as np
+
+    from mgl_tpu_torch.io.sam import write_sam
+    from mgl_tpu_torch.pipelines import mapper as mp
+    from mgl_tpu_torch.testing import GRCH38_CONTIGS
+
+    index, g = genome["index"], genome["g"]
+    n_ref = len(index.ref)
+    words, blocked = mp._ref_device(index, dev)
+    layout = "blocked" if blocked else "flat"
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    names = [n for n, _ in GRCH38_CONTIGS]
+    log(f"[10 size range, mapper] GRCh38's coordinate space: "
+        f"{len(names)} contigs, {n_ref} positions with the separators, one "
+        f"4 Mbp segment a contig (simulated with {len(g['reads'])} reads in "
+        f"{genome['t_sim']:.2f} s); build_multi index (k = 16, "
+        f"{len(index.sorted_kmers)} k-mers) {genome['t_index']:.2f} s; the "
+        f"word-packed reference on the card ({layout}, "
+        f"{words.numel() * 4} B) {genome['t_ref']:.2f} s (both in "
+        f"a thread beside the SW and PairHMM shapes); host peak RSS so far "
+        f"{rss:.2f} GiB")
+    reads, start = g["reads"], g["start"]
+    m = run_mapper(dev, drive, workload=(index, reads, start))
+    past = start >= 2**31
+    if not past.any():
+        raise AssertionError("GRCh38 mapper: no read lies past 2^31")
+    out, pad = m["out"], m["out"]["window_pad"]
+    cid, _ = index.locate(out["pos"])
+    inside = m["inside"] & (cid == g["contig"])
+    acc_past = float(inside[past].mean())
+    if acc_past < 0.99 or float(inside.mean()) < 0.99:
+        raise AssertionError(f"GRCh38 mapper: the true contig and start in "
+                             f"the window for {inside.mean():.4f} of reads, "
+                             f"{acc_past:.4f} of those past 2^31 (< 0.99)")
+    srt = m["srt"]
+    n_reads = len(reads)
+    log(f"    score mode + align_and_sort cold {m['t_cold']:.3f} s, launches "
+        f"{m['launches']}; {int(past.sum())} reads past 2^31; true contig "
+        f"and start in the window {inside.mean():.4f}, past 2^31 "
+        f"{acc_past:.4f} (gate 0.99); {m['n_checked']} sampled scores equal "
+        f"to the plain path; align_and_sort keys equal a stable NumPy "
+        f"argsort ({int((srt['contig'] >= 12).sum())} keys on chr13-chrY); "
+        f"warm {n_reads / m['t_warm']:.1f} reads/s; card {card}")
+    c = run_cigar_mapper(dev, drive, index,
+                         workload=(reads, g["del_idx"], start))
+    sam = tmp / "grch38.sam"
+    t0 = time.perf_counter()
+    write_sam(sam, index, reads, c["out"])
+    t_sam = time.perf_counter() - t0
+    cig_inside = ((c["out"]["pos"] >= 0) & (start >= c["out"]["pos"])
+                  & (start <= c["out"]["pos"] + c["wlen"] - reads.shape[1]))
+    pool = np.nonzero(cig_inside & g["clean_head"])[0]
+    pick = set(np.random.default_rng(5).choice(
+        pool, min(GENOME_CHECK, len(pool)), replace=False).tolist())
+    checked = past_checked = 0
+    with open(sam) as f:
+        for line in f:
+            if line.startswith("@"):
+                continue
+            fields = line.split("\t", 4)
+            i = int(fields[0][4:])
+            if i not in pick:
+                continue
+            want = (names[g["contig"][i]], str(int(g["local"][i]) + 1))
+            if (fields[2], fields[3]) != want:
+                raise AssertionError(f"GRCh38 SAM: read {i} at "
+                                     f"{fields[2]}:{fields[3]}, truth "
+                                     f"{want[0]}:{want[1]}")
+            checked += 1
+            past_checked += bool(past[i])
+    if checked != len(pick):
+        raise AssertionError(f"GRCh38 SAM: {checked} of {len(pick)} sampled "
+                             f"records written")
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    n_total = {}
+    for k in m["launches"]:
+        n_total[k] = m["launches"][k] + c["launches"][k]
+    log(f"    CIGAR mode cold {c['t_cold']:.3f} s, launches "
+        f"{c['launches']}; every mapped read has a CIGAR, and every "
+        f"deletion read whose window holds its start a D "
+        f"({c['n_del_off']} deletion reads seeded elsewhere); traceback "
+        f"tier {len(c['tier'])} reads equal to the plain path and "
+        f"{c['n_check']} sampled to the host decoder; warm "
+        f"{n_reads / c['t_warm']:.1f} reads/s; write_sam {t_sam:.2f} s, "
+        f"{checked} sampled records' RNAME and POS equal to the truth "
+        f"({past_checked} past 2^31); host peak RSS {rss:.2f} GiB; card "
+        f"{card}")
+    return n_total
+
+
+def run_size_range(dev, drive, card) -> dict:
+    """Phase 10: the size range (:func:`run_size_sw` and
+    :func:`check_size_sw`, :func:`run_size_pairhmm`,
+    :func:`run_size_mapper`).  What the card's results are held to runs
+    beside them: the SW plain path on the card in one spawned process, the
+    engine's ``device="cpu"`` references in two more, and, once the SW
+    shapes are done, the mapper's genome, index and packed reference in a
+    thread.  Returns the launches of every main-path run."""
+    import concurrent.futures
+    import multiprocessing
+    import tempfile
+
+    from mgl_tpu_torch.testing import (ENGINE_MODES, LONG_SW_SHAPES,
+                                       engine_on_cpu, sw_plain_cigars)
+
+    spawn = multiprocessing.get_context("spawn")
+    jobs = [(n, m) for n in ("long_hap", "longer_hap", "long_read")
+            for m in ENGINE_MODES if n != "long_hap" or m == "fast_path"]
+    sw_pool = concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn)
+    cpu_pool = concurrent.futures.ProcessPoolExecutor(2, mp_context=spawn)
+    genome_pool = concurrent.futures.ThreadPoolExecutor(1)
+    pools = (sw_pool, cpu_pool, genome_pool)
+    try:
+        sw_refs = {n: sw_pool.submit(sw_plain_cigars, n)
+                   for n in LONG_SW_SHAPES}
+        cpu_refs = {job: cpu_pool.submit(engine_on_cpu, *job)
+                    for job in jobs}
+        sw_n, sw_runs = run_size_sw(dev, drive, card)
+        # after the SW shapes, so that their peak device memory is theirs
+        genome = genome_pool.submit(size_genome, dev)
+        parts = [sw_n, run_size_pairhmm(
+            dev, drive, card, lambda n, m: cpu_refs[(n, m)].result())]
+        check_size_sw(sw_runs, lambda n: sw_refs[n].result())
+        genome = genome.result()
+    finally:
+        for p in pools:
+            p.shutdown(wait=True, cancel_futures=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp_dir:
+        parts.append(run_size_mapper(dev, drive, card,
+                                     pathlib.Path(tmp_dir), genome))
+    total = {}
+    for part in parts:
+        for k, v in part.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def main() -> int:
@@ -2375,6 +2784,14 @@ def main() -> int:
     import torch.distributed as dist
 
     dist.destroy_process_group()
+
+    # ---- phase 10: the size range -----------------------------------------
+    t0 = time.perf_counter()
+    size_n = run_size_range(dev, drive, card)
+    for k in kernels:
+        launches[k] += size_n.get(k, 0)
+    log(f"[10 size range] {time.perf_counter() - t0:.1f} s; launches "
+        f"{size_n}")
 
     if any(m == "jax" or m.startswith(("jax.", "mgl_tpu."))
            or m == "mgl_tpu" for m in sys.modules):

@@ -431,6 +431,252 @@ def simulate_reads(seed: int, ref_len: int, n_reads: int, read_len: int,
     return ref, reads, true_pos
 
 
+# the JAX package's long SW pairs (tests/test_streaming_kernels.py:301-304,
+# :340-343): seed, target length and the query's slice of the target
+LONG_SW_PAIRS = {"20k_x_5k": (11, 20_000, 7_000, 12_000),
+                 "12k_x_6.5k": (23, 12_000, 2_500, 9_000)}
+
+
+def long_sw_pair(seed: int, tlen: int, q_lo: int, q_hi: int
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """(target, query) by the JAX package's long-pair recipe: a random
+    target of ``tlen`` bases and its slice [q_lo, q_hi) at 1%
+    substitutions."""
+    rng = np.random.default_rng(seed)
+    tgt = rng.choice(ACGT, tlen)
+    q = tgt[q_lo:q_hi].copy()
+    mut = rng.random(len(q)) < 0.01
+    q[mut] = rng.choice(ACGT, int(mut.sum()))
+    return tgt, q
+
+
+def long_sw_batch(seed: int, n_pairs: int = 64, tlen: int = 8_000,
+                  qlen: int = 2_000, n_full: int = 48
+                  ) -> tuple[list[bytes], list[bytes]]:
+    """``n_pairs`` pairs of up to ``tlen`` x ``qlen``: the first ``n_full``
+    at exactly that size, so that one length bucket holds them all, the
+    rest of 3/4 to full length each way (a bucket of its own each, as
+    lengths past the bucket grid take exact-size buckets).  Each query is
+    a slice of its target at 1% substitutions with a 3-base deletion and
+    a 2-base insertion."""
+    rng = np.random.default_rng(seed)
+    targets, queries = [], []
+    for k in range(n_pairs):
+        tl = tlen if k < n_full else int(rng.integers(tlen * 3 // 4, tlen))
+        ql = qlen if k < n_full else int(rng.integers(qlen * 3 // 4, qlen))
+        t = rng.choice(ACGT, tl)
+        st = int(rng.integers(0, tl - ql - 2))
+        q = t[st:st + ql + 1].copy()
+        q[rng.random(len(q)) < 0.01] = rng.choice(ACGT)
+        p = int(rng.integers(ql // 4, ql // 2))
+        q = np.concatenate([q[:p], q[p + 3:2 * p], rng.choice(ACGT, 2),
+                            q[2 * p:]])[:ql]
+        targets.append(t.tobytes())
+        queries.append(q.tobytes())
+    return targets, queries
+
+
+LONG_SW_BATCH = "64 x 8000x2000"
+LONG_SW_SHAPES = (*LONG_SW_PAIRS, LONG_SW_BATCH)
+LONG_SW_SAMPLE = 8         # pairs of a long batch held to the plain path
+
+
+def long_sw_shape(name: str) -> tuple[list[bytes], list[bytes]]:
+    """(targets, queries) of the long SW shape ``name``: a pair of
+    LONG_SW_PAIRS, or LONG_SW_BATCH, :func:`long_sw_batch` of seed 3."""
+    if name == LONG_SW_BATCH:
+        return long_sw_batch(3)
+    return tuple([x.tobytes()] for x in long_sw_pair(*LONG_SW_PAIRS[name]))
+
+
+def long_sw_sample(n_pairs: int) -> np.ndarray:
+    """The pairs of a long SW shape held to the plain path: all of them up
+    to LONG_SW_SAMPLE, else LONG_SW_SAMPLE drawn from seed 4."""
+    if n_pairs <= LONG_SW_SAMPLE:
+        return np.arange(n_pairs)
+    return np.sort(np.random.default_rng(4).choice(n_pairs, LONG_SW_SAMPLE,
+                                                   replace=False))
+
+
+def sw_plain_cigars(name: str, device="cuda") -> tuple[dict, float]:
+    """({strategy code: [(cigar, offset)]} of :func:`long_sw_sample`'s
+    pairs of the long SW shape ``name`` by the plain path on ``device``,
+    seconds it took): ``sw_banded_plain`` once a value of ``indel_init``
+    (the matrix depends on nothing else), then the host decoder in each
+    strategy, as ``align_batch_banded`` decodes the kernel's words.
+    Importable by a spawned process."""
+    from mgl_tpu_torch.core.params import OverhangStrategy
+    from mgl_tpu_torch.kernels.sw_cuda import decode_cigars
+    from mgl_tpu_torch.ops.sw import banded_layout, sw_banded_plain
+
+    t0 = time.perf_counter()
+    targets, queries = long_sw_shape(name)
+    pick = long_sw_sample(len(targets))
+    sub_t = [targets[i] for i in pick]
+    sub_q = [queries[i] for i in pick]
+    args = sw_tensors(sub_t, sub_q, device)
+    wpb = banded_layout(args[0].shape[1], args[1].shape[1])[1]
+    tlen, qlen = (np.array([len(x) for x in xs], np.int32)
+                  for xs in (sub_t, sub_q))
+    out = {}
+    for indel in (False, True):
+        ez, words = sw_banded_plain(*args, 25, -50, 110, 6, indel_init=indel)
+        ez, words = ez.cpu().numpy(), words.cpu().numpy()
+        for s in OverhangStrategy:
+            if bool(s & (OverhangStrategy.INDEL
+                         | OverhangStrategy.LEADING_INDEL)) == indel:
+                out[int(s)] = decode_cigars(ez, words, tlen, qlen, s, wpb)
+    return out, time.perf_counter() - t0
+
+
+def long_pairhmm_set(seed: int, hap_len: int, n_reads: int = 3,
+                     read_len: int = 250) -> tuple[list[dict], list]:
+    """(reads, [hap]): ``n_reads`` reads of ``read_len`` bases at 2%
+    substitutions, drawn from a random hap of ``hap_len`` at starts below
+    hap_len - 400, qualities 20-39 - the JAX package's long-hap recipe
+    (tests/test_streaming_kernels.py:375-383, seed 47, 5,600 bp)."""
+    rng = np.random.default_rng(seed)
+    hap = rng.choice(ACGT, hap_len)
+    reads = []
+    for _ in range(n_reads):
+        st = int(rng.integers(0, hap_len - 400))
+        b = hap[st:st + read_len].copy()
+        mut = rng.random(read_len) < 0.02
+        b[mut] = rng.choice(ACGT, int(mut.sum()))
+        q = rng.integers(20, 40, read_len).astype(np.uint8)
+        reads.append(dict(bases=b, q=q, i=q, d=q,
+                          c=np.full(read_len, 10, np.uint8)))
+    return reads, [hap]
+
+
+def long_read_set(seed: int, n_reads: int = 4, read_len: int = 4_000,
+                  n_haps: int = 3, hap_len: int = 6_000, err: float = 0.02
+                  ) -> tuple[list[dict], list]:
+    """(reads, haps): ``n_haps`` haps of ``hap_len``, the first random and
+    each next one the one before with 8 SNPs, and ``n_reads`` reads of
+    ``read_len`` drawn from them in turn at ``err`` substitutions,
+    qualities 20-39: every pair related, and every likelihood far under
+    the f32 pass's 1e-28 gate, so the f64 rescue takes them all."""
+    rng = np.random.default_rng(seed)
+    haps = [rng.choice(ACGT, hap_len)]
+    for _ in range(n_haps - 1):
+        h = haps[-1]
+        for p in rng.integers(0, hap_len, 8):
+            h = snp(h, int(p))
+        haps.append(h)
+    reads = []
+    for k in range(n_reads):
+        st = int(rng.integers(0, hap_len - read_len + 1))
+        b = haps[k % n_haps][st:st + read_len].copy()
+        mut = rng.random(read_len) < err
+        b[mut] = rng.choice(ACGT, int(mut.sum()))
+        q = rng.integers(20, 40, read_len).astype(np.uint8)
+        reads.append(dict(bases=b, q=q, i=q, d=q,
+                          c=np.full(read_len, 10, np.uint8)))
+    return reads, haps
+
+
+# the engine's three modes, and the long PairHMM sets of the size range by
+# name: the JAX package's TPU test (5.6 kbp), a hap past the TPU's remote
+# compiler (16 kbp), and reads past its streaming tier's length
+ENGINE_MODES = {"default": {}, "use_double": {"use_double": True},
+                "fast_path": {"fast_path": True}}
+LONG_PAIRHMM_SETS = {"long_hap": (long_pairhmm_set, (47, 5_600)),
+                     "longer_hap": (long_pairhmm_set, (47, 16_000)),
+                     "long_read": (long_read_set, (5,))}
+
+
+def long_pairhmm(name: str) -> tuple[list[dict], list]:
+    """(reads, haps) of the long PairHMM set ``name``."""
+    fn, args = LONG_PAIRHMM_SETS[name]
+    return fn(*args)
+
+
+def engine_on_cpu(name: str, mode: str, threads: int = 1) -> np.ndarray:
+    """The engine's (R, H) log10 matrix of the long set ``name`` in
+    ``mode`` on ``device="cpu"``, with ``threads`` torch threads: the
+    reference a card run is held to, importable by a spawned process."""
+    from mgl_tpu_torch.api import PairHmmEngine
+
+    torch.set_num_threads(threads)
+    reads, haps = long_pairhmm(name)
+    return PairHmmEngine(device="cpu", **ENGINE_MODES[mode]
+                         ).compute_likelihoods(reads, haps)
+
+
+# GRCh38's primary assembly, chr1-chr22, chrX, chrY: the contigs' lengths
+# (the assembly's public sequence report), 3,088,269,832 bases
+GRCH38_CONTIGS = tuple(zip(
+    [f"chr{c}" for c in [*range(1, 23), "X", "Y"]],
+    (248956422, 242193529, 198295559, 190214555, 181538259, 170805979,
+     159345973, 145138636, 138394717, 133797422, 135086622, 133275309,
+     114364328, 107043718, 101991189, 90338345, 83257441, 80373285,
+     58617616, 64444167, 46709983, 50818468, 156040895, 57227415)))
+GENOME_SEGMENT = 4_000_000
+
+
+def genome_coords_reference(seed: int, segment: int = GENOME_SEGMENT,
+                            contigs=GRCH38_CONTIGS):
+    """(contigs [(name, uint8 array)], segment starts (n,) int64): each
+    contig all 'N' but for one segment of ``segment`` random bases at a
+    start drawn from the seed - a reference with GRCh38's coordinate space
+    whose k-mers fill n x ``segment`` bases.  ~3.1 GB at the defaults."""
+    rng = np.random.default_rng(seed)
+    out, starts = [], []
+    for name, n in contigs:
+        seq = np.full(n, ord("N"), np.uint8)
+        st = int(rng.integers(0, n - segment))
+        seq[st:st + segment] = ACGT[rng.integers(0, 4, segment,
+                                                 dtype=np.uint8)]
+        out.append((name, seq))
+        starts.append(st)
+    return out, np.asarray(starts, np.int64)
+
+
+def genome_reads(seed: int, contigs, seg_starts: np.ndarray,
+                 n_reads: int, read_len: int = 150,
+                 segment: int = GENOME_SEGMENT, err: float = 0.01,
+                 del_frac: float = 0.02, del_at: int = 70, max_del: int = 2,
+                 sep: int = 48, head: int = 12) -> dict:
+    """Reads drawn evenly over the segments of
+    :func:`genome_coords_reference`, on both strands at random, at ``err``
+    substitutions, ``del_frac`` of them (sorted ``del_idx``) with a 1 to
+    ``max_del`` bp deletion after read position ``del_at``, as
+    :func:`deletion_reads`.  Returns a dict: reads (N, L) uint8; contig,
+    local start and global start (N,), the last in
+    ``ReferenceIndex.build_multi``'s coordinates with ``sep`` bases between
+    contigs; reverse (N,) bool; del_idx; clean_head (N,) bool, no
+    substitution and no deletion among the first ``head`` bases in the
+    reference's orientation, where an optimal alignment starts at the true
+    start."""
+    rng = np.random.default_rng(seed)
+    lens = np.array([len(s) for _, s in contigs], np.int64)
+    offsets = np.concatenate([[0], np.cumsum(lens + sep)[:-1]])
+    contig = np.arange(n_reads) % len(contigs)
+    local = seg_starts[contig] + rng.integers(
+        0, segment - read_len - max_del, n_reads)
+    span = np.tile(np.arange(read_len), (n_reads, 1))
+    del_idx = np.sort(rng.choice(n_reads, int(n_reads * del_frac),
+                                 replace=False))
+    span[del_idx, del_at:] += rng.integers(1, max_del + 1,
+                                           len(del_idx))[:, None]
+    reads = np.empty((n_reads, read_len), np.uint8)
+    for c, (_, seq) in enumerate(contigs):
+        sel = np.nonzero(contig == c)[0]
+        reads[sel] = seq[local[sel, None] + span[sel]]
+    mut = rng.random(reads.shape) < err
+    reads[mut] = ACGT[(np.searchsorted(ACGT, reads[mut])
+                       + rng.integers(1, 4, int(mut.sum()))) % 4]
+    reverse = rng.random(n_reads) < 0.5
+    from mgl_tpu_torch.pipelines.mapper import revcomp
+
+    reads[reverse] = revcomp(reads[reverse])
+    return {"reads": reads, "contig": contig, "local": local,
+            "start": offsets[contig] + local, "reverse": reverse,
+            "del_idx": del_idx,
+            "clean_head": ~mut[:, :min(head, del_at)].any(axis=1)}
+
+
 def indel_read_set() -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
     """``tests/test_mapper_scale.py:116``'s reads for the CIGAR walk: 96
     of 120 bp against a 120 kbp reference, in five kinds (exact, a 3 bp
