@@ -89,7 +89,13 @@ processes on the card, and ``align_and_sort`` on the mesh.  Phases:
    the scalar oracle or bit-equal to ``device="cpu"``; and the mapper on
    GRCh38's coordinate space (3.09 Gbp, half the reads past 2^31) in
    score and CIGAR mode, with ``align_and_sort`` and ``write_sam``
-   checked against the truth.
+   checked against the truth;
+11. the scale runs (see :func:`run_scale`): ``python -m
+   mgl_tpu_torch.scale_configs`` in three processes - config 4 at
+   1,048,576 reads on 64 Mbp and config 5's sorts (10M keys on the card),
+   the three CIGAR configs (262,144 and 1,048,576 reads, and the 5% error
+   sweep), and the 10M-key sort on 8 gloo ranks - with the data-dependent
+   fields of ``tests/golden/scale_report.json`` held equal.
 
 Any failed phase raises and the script exits non-zero.  The last line is
 one JSON object naming the device; the line before it lists the kernels
@@ -1486,6 +1492,90 @@ def run_size_range(dev, drive, card) -> dict:
     return total
 
 
+# phase 11, the scale runs: mgl_tpu_torch.scale_configs in three processes
+# of their own, so that each entry's max_rss_gb is its own; the fields of
+# the JAX package's record (tests/golden/scale_report.json) that depend only
+# on the seeded data and the mapper's logic, which the port must repeat
+SCALE_RUNS = {"configs 4 + 5": (), "CIGAR": ("--cigar", "--cigar-mode", "all"),
+              "mesh": ("--mesh-only",)}
+SCALE_TIMEOUT_S = 700
+SCALE_RECORD_FIELDS = {
+    "config4_seed_extend_1m": ("mapped_frac", "window_accuracy"),
+    "config4_cigar": ("indel_reads", "indel_cigars_with_gap",
+                      "traceback_tier_reads", "traceback_tier_share"),
+    "config4_cigar_1m": ("indel_reads", "indel_cigars_with_gap",
+                         "traceback_tier_reads"),
+    "config4_cigar_hierr": ("mapped_frac", "indel_reads",
+                            "indel_cigars_with_gap", "traceback_tier_reads",
+                            "traceback_tier_share"),
+}
+
+
+def scale_process(flags: tuple, out: str) -> tuple[int, str, float]:
+    """(exit code, the end of stderr, seconds) of one ``python -m
+    mgl_tpu_torch.scale_configs --out out *flags`` process."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mgl_tpu_torch.scale_configs", "--out", out,
+         *flags], cwd=ROOT, capture_output=True, text=True,
+        timeout=SCALE_TIMEOUT_S)
+    return proc.returncode, proc.stderr[-3000:], time.perf_counter() - t0
+
+
+def run_scale(launcher) -> dict:
+    """Phase 11: ``python -m mgl_tpu_torch.scale_configs`` as a user runs
+    it, one process each for configs 4 and 5 (1,048,576 reads on 64 Mbp,
+    3 passes; the sorts of those reads' keys and of 10M keys on the card),
+    the three CIGAR configs, and the 10M-key sort on 8 gloo ranks, each
+    started by :func:`scale_process` in ``launcher``, a one-process pool
+    made while this process was small: a process forked from this one
+    would start from its peak RSS (phase 10's), not its own.  Checks
+    the merged report: window accuracy at least 0.99, every mapped read
+    with a CIGAR, both sorts and the mesh sort verified (scale_configs raises
+    otherwise), a launch of each kernel, and the record's data-dependent
+    fields.  Returns the report, each process's seconds and the launches
+    of the timed passes, summed."""
+    import tempfile
+
+    record = json.loads((ROOT / "tests/golden/scale_report.json").read_text())
+    secs = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        out = pathlib.Path(tmp) / "scale_report.json"
+        for name, flags in SCALE_RUNS.items():
+            code, err, secs[name] = launcher.submit(
+                scale_process, flags, str(out)).result()
+            if code != 0:
+                raise AssertionError(f"scale_configs {' '.join(flags)} exit "
+                                     f"{code}: {err}")
+        rep = json.loads(out.read_text())
+    c4 = rep["config4_seed_extend_1m"]
+    if c4["window_accuracy"] < 0.99:
+        raise AssertionError(f"config 4 window accuracy {c4}")
+    cig = [rep[n] for n in ("config4_cigar", "config4_cigar_1m",
+                            "config4_cigar_hierr")]
+    if not all(c["cigar_complete"] for c in cig):
+        raise AssertionError("a CIGAR config left a mapped read without one")
+    if not rep["config5_mesh_sort"]["mesh_sort_verified"]:
+        raise AssertionError("the mesh sort was not verified")
+    if rep["config5_align_sort"]["sort_keys"] != 10_000_000:
+        raise AssertionError("config 5 did not sort 10M keys")
+    diff = [f"{n}.{k}: {rep[n][k]} (record {record[n][k]})"
+            for n, keys in SCALE_RECORD_FIELDS.items() for k in keys
+            if rep[n][k] != record[n][k]]
+    if diff:
+        raise AssertionError(f"scale fields differ from the JAX package's "
+                             f"record: {diff}")
+    launches = {}
+    for entry in [c4, *cig]:
+        for k, v in entry["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    if min(c4["launches"]["sw_banded"], c4["launches"]["window_gather"],
+           *(c["launches"]["cigar_walk"] for c in cig)) < 1:
+        raise AssertionError(f"a kernel of the scale runs never launched: "
+                             f"{[e['launches'] for e in [c4, *cig]]}")
+    return {"rep": rep, "secs": secs, "launches": launches}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1544,6 +1634,14 @@ def main() -> int:
         out = fn()
         t = time.perf_counter() - t0
         return out, {n: k.launches for n, k in kernels.items()}, t
+
+    # phase 11's launcher, started now, while this process is small
+    import concurrent.futures
+    import multiprocessing
+
+    scale_launcher = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    scale_launcher.submit(int).result()
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -2792,6 +2890,50 @@ def main() -> int:
         launches[k] += size_n.get(k, 0)
     log(f"[10 size range] {time.perf_counter() - t0:.1f} s; launches "
         f"{size_n}")
+
+    # ---- phase 11: the scale runs ------------------------------------------
+    t0 = time.perf_counter()
+    try:
+        scale = run_scale(scale_launcher)
+    finally:
+        scale_launcher.shutdown()
+    for k in kernels:
+        launches[k] += scale["launches"].get(k, 0)
+    srep = scale["rep"]
+    c4, c5 = srep["config4_seed_extend_1m"], srep["config5_align_sort"]
+    secs = ", ".join(f"{n} {t:.1f} s" for n, t in scale["secs"].items())
+    log(f"[11 scale runs] python -m mgl_tpu_torch.scale_configs, one process "
+        f"each: {secs}; launches of the timed passes {scale['launches']}; "
+        f"the record's data-dependent fields equal; card {srep['card']}")
+    log(f"    config 4: {c4['n_reads']} reads on {c4['ref_mbp']:.0f} Mbp, "
+        f"median {c4['reads_per_s']} reads/s (trials "
+        f"{c4['trials_reads_per_s']}), stages {c4['stage_s']}, index "
+        f"{c4['index_build_s']} s, warm-up {c4['warmup_s']} s, peak RSS "
+        f"{c4['max_rss_gb']} GiB, window accuracy {c4['window_accuracy']}, "
+        f"mapped {c4['mapped_frac']}; card {srep['card']}")
+    for n in ("config4_cigar", "config4_cigar_1m", "config4_cigar_hierr"):
+        c = srep[n]
+        log(f"    {n}: {c['n_reads']} reads (err {c['err']}, deletions of "
+            f"1-{c['max_indel']} bp in {c['indel_reads']}), "
+            f"{c['reads_per_s']} reads/s, traceback tier "
+            f"{c['traceback_tier_reads']} reads ({c['traceback_tier_share']}"
+            f", {c['traceback_tier_s']} s, {c['traceback_overflow_reads']} "
+            f"walks over SEG_CAP), mapped {c['mapped_frac']}, "
+            f"{c['indel_cigars_with_gap']} deletion reads with a gap; card "
+            f"{srep['card']}")
+    mesh_sort = srep["config5_mesh_sort"]
+    log(f"    config 5: {c5['e2e_reads']} keys host to host "
+        f"{c5['e2e_sort_s']} s cold, {c5['e2e_sort_warm_s']} s warm; "
+        f"{c5['sort_keys']} keys on the card {c5['sort_10m_device_s']} s "
+        f"({c5['sort_10m_mkeys_per_s']} Mkeys/s; median of "
+        f"{c5['sort_10m_repeats']} by {c5['sort_10m_clock']}, min and max "
+        f"{c5['sort_10m_min_max_s']} s; first call "
+        f"{c5['sort_10m_first_call_s']} s); mesh of "
+        f"{mesh_sort['mesh_sort_10m_devices']} gloo ranks: "
+        f"{mesh_sort['mesh_sort_10m_s']} s from a barrier, "
+        f"{mesh_sort['mesh_sort_10m_wall_s']} s from the first spawn; card "
+        f"{srep['card']}")
+    log(f"[11 scale runs] {time.perf_counter() - t0:.1f} s; card {card}")
 
     if any(m == "jax" or m.startswith(("jax.", "mgl_tpu."))
            or m == "mgl_tpu" for m in sys.modules):

@@ -87,7 +87,13 @@ def compute_likelihoods_packed(lengths, reads_buf, haps_buf,
     """The engine on packed buffers: the flat (R*H,) float64 array in the
     reference's likelihoodArray layout
     (com_microsoft_mgl_pairhmm_MicrosoftPairHmm.cc:155-157), empty for a
-    request with no reads or no haps."""
+    request with no reads or no haps.
+
+    A 0-length read or hap raises ``ValueError: empty sequence`` in every
+    mode, as ``PairHmmEngine`` does: ``mgl_tpu/batch/packed.py:74-84``
+    skips the engine's check and returns -inf, or raises ``IndexError`` or
+    ``ZeroDivisionError``, by mode; GATK's binding never sends an empty
+    sequence."""
     from mgl_tpu_torch.api import PairHmmEngine
 
     reads, haps = unpack_request(lengths, reads_buf, haps_buf)

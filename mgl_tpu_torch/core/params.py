@@ -70,3 +70,9 @@ class SWParameters:
             gap_open=gap_open if gap_open > 0 else -gap_open,
             gap_extend=gap_extend if gap_extend > 0 else -gap_extend,
         )
+
+
+# GATK's standard SW parameter sets (mgl_tpu/core/params.py:73-76)
+STANDARD_NGS = SWParameters(25, -50, 110, 6)
+NEW_SW_PARAMETERS = SWParameters(200, -150, 260, 11)
+ORIGINAL_DEFAULT = SWParameters(3, -1, 4, 3)

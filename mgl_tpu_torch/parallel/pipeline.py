@@ -28,7 +28,7 @@ import torch
 import torch.distributed as dist
 
 from mgl_tpu_torch.core.context import CTX_F32, read_transition_rows
-from mgl_tpu_torch.core.params import SWParameters
+from mgl_tpu_torch.core.params import STANDARD_NGS, SWParameters
 from mgl_tpu_torch.kernels.pairhmm_cuda import pairhmm_banded_f32
 from mgl_tpu_torch.kernels.sw_cuda import sw_banded
 from mgl_tpu_torch.ops.pairhmm import BAND, N_PLANES
@@ -121,7 +121,7 @@ def pipeline_step(mesh: Mesh, sw_params: SWParameters | None = None):
     (r_l,) f32; sw_scores (r_l,) i32; sorted_key_hi / sorted_key_lo (r_l,)
     int64 holding the uint32 halves and sorted_order (r_l,) i32 (the
     global read index), this rank's slice of the global key order."""
-    params = sw_params or SWParameters(25, -50, 110, 6)
+    params = sw_params or STANDARD_NGS
     dev = mesh.device
     enc = torch.from_numpy(BASE_ENC.copy()).to(dev)
     i32, f32, i64 = torch.int32, torch.float32, torch.int64

@@ -72,8 +72,17 @@ def sort_records_single(keys: np.ndarray, vals: np.ndarray,
     dev = resolve_device(device)
     k = host_key(keys).to(dev)
     v = torch.from_numpy(np.ascontiguousarray(vals, np.int32)).to(dev)
+    sk, sv = sort_device(k, v)
+    return key_to_host(sk), sv.cpu().numpy()
+
+
+def sort_device(k: torch.Tensor, v: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The device part of :func:`sort_records_single`: a stable sort of
+    :func:`host_key`'s int64 keys ``k`` where they lie, and the payload
+    ``v`` gathered into their order."""
     sk, order = torch.sort(k, stable=True)
-    return key_to_host(sk), v[order].cpu().numpy()
+    return sk, v[order]
 
 
 def _sort_records(rec: torch.Tensor) -> torch.Tensor:

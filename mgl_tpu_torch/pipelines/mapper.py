@@ -37,7 +37,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from mgl_tpu_torch.core.params import OverhangStrategy, SWParameters
+from mgl_tpu_torch.core.params import STANDARD_NGS, OverhangStrategy
 from mgl_tpu_torch.device import resolve_device
 from mgl_tpu_torch.native import (cigar_decode_bulk_banded, exact_nm,
                                   kmer_index_rows, kmer_prefix_table,
@@ -618,9 +618,15 @@ def map_reads(index: ReferenceIndex, reads: np.ndarray,
     :func:`sw_cigar_windows` under ``strategy`` (default SOFTCLIP), with
     score 0 (as ``mgl_tpu``'s device path gives it); score mode does not
     read ``strategy``.
+
+    Read and reference bases are compared as 4-bit codes (:func:`encode`),
+    so a lowercase base matches its uppercase one, as on the JAX package's
+    TPU route (``impl="pallas"``, its mapper.py:757); its XLA route
+    (``impl="xla"``) compares ASCII and scores 'a' against 'A' as a
+    mismatch.  :func:`map_reads_stream` compares the same way.
     """
     dev = resolve_device(device)
-    params = params or SWParameters(25, -50, 110, 6)
+    params = params or STANDARD_NGS
     strategy = strategy or OverhangStrategy.SOFTCLIP
     N, L = reads.shape
     pos, votes, strand, votes2 = seed_candidates(index, reads, L,
@@ -850,12 +856,13 @@ def map_reads_stream(index: ReferenceIndex, reads: np.ndarray,
     (indels, mis-seeds, window-edge clips), and under the INDEL and
     LEADING_INDEL strategies every non-exact read, go through
     :func:`sw_cigar_windows` in a post-pass (``METRICS`` map.tb_reads,
-    map.traceback).  Score mode does not read ``strategy``.
+    map.traceback, and map.tb_overflow for the walks that overflowed
+    their segment buffer).  Score mode does not read ``strategy``.
     """
     from mgl_tpu_torch.kernels.pairhmm_cuda import to_host
 
     dev = resolve_device(device)
-    params = params or SWParameters(25, -50, 110, 6)
+    params = params or STANDARD_NGS
     strategy = strategy or OverhangStrategy.SOFTCLIP
     # the certified tier's score model assumes the zero boundary rows of
     # the non-indel-init strategies; INDEL/LEADING_INDEL windows take the
@@ -1038,6 +1045,7 @@ def decode_overflow(res: list, words: torch.Tensor, ez: torch.Tensor,
     need = [b for b, r in enumerate(res) if r is None]
     if not need:
         return res
+    METRICS.count("map.tb_overflow", len(need))
     from mgl_tpu_torch.kernels.pairhmm_cuda import to_host
 
     sel = torch.tensor(need, device=words.device)

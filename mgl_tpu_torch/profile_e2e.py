@@ -34,7 +34,6 @@ from __future__ import annotations
 import argparse
 import functools
 import json
-import subprocess
 import sys
 import time
 
@@ -42,6 +41,8 @@ import torch
 
 from mgl_tpu_torch import api
 from mgl_tpu_torch.batch.bucketing import bucket_pairs
+from mgl_tpu_torch.core.params import STANDARD_NGS
+from mgl_tpu_torch.device import card_name
 from mgl_tpu_torch.kernels import pairhmm_cuda, seed_extend_cuda, sw_cuda
 from mgl_tpu_torch.ops import pairhmm
 from mgl_tpu_torch.testing import (engine_region, golden_groups, load_golden,
@@ -167,9 +168,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_e2e needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()[0]
+    card = card_name()
     for mod, fn in STAGES:
         setattr(mod, fn, _ranged(fn, getattr(mod, fn)))
 
@@ -180,7 +179,7 @@ def main(argv=None) -> int:
     engine_fast = api.PairHmmEngine(fast_path=True, device=dev)
     sw_t, sw_q = sw_pairs(21, 10_000, (150, 150), (150, 150))
     regions = [engine_region(100 + k) for k in range(8)]
-    params = api.SWParameters(25, -50, 110, 6)
+    params = STANDARD_NGS
     soft = api.OverhangStrategy.SOFTCLIP
     gold = [([r["target"].encode() for r in rs],
              [r["query"].encode() for r in rs],

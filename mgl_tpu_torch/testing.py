@@ -413,15 +413,14 @@ def plane_outputs(mode: int, n: int, t: int, q: int, dev):
     return (torch.empty((n,), dtype=torch.int32, device=dev),)
 
 
-def simulate_reads(seed: int, ref_len: int, n_reads: int, read_len: int,
-                   err: float = 0.01
-                   ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+def simulate(rng: np.random.Generator, ref_len: int, n_reads: int,
+             read_len: int, err: float = 0.01
+             ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(ref, reads, true_pos): a uniform random ACGT reference and reads
-    drawn from it with substitutions at rate ``err`` (the logic of
-    ``tools/run_scale_configs.py:31 simulate``, BASELINE config 4's
-    workload).  The reference is drawn as uint8 indices, 2 B a base at
-    its peak."""
-    rng = np.random.default_rng(seed)
+    drawn from it with substitutions at rate ``err``, the draws of
+    ``tools/run_scale_configs.py:31 simulate`` in their order (BASELINE
+    config 4's workload).  The reference is drawn as uint8 indices, 2 B a
+    base at its peak (``rng.choice`` would hold int64 indices, 8 B)."""
     ref = ACGT[rng.integers(0, 4, size=ref_len, dtype=np.uint8)]
     true_pos = rng.integers(0, ref_len - read_len, size=n_reads)
     reads = ref[true_pos[:, None] + np.arange(read_len)[None, :]].copy()
@@ -429,6 +428,14 @@ def simulate_reads(seed: int, ref_len: int, n_reads: int, read_len: int,
     reads[mut] = ACGT[(np.searchsorted(ACGT, reads[mut])
                        + rng.integers(1, 4, int(mut.sum()))) % 4]
     return ref, reads, true_pos
+
+
+def simulate_reads(seed: int, ref_len: int, n_reads: int, read_len: int,
+                   err: float = 0.01
+                   ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """:func:`simulate` drawn from ``seed``."""
+    return simulate(np.random.default_rng(seed), ref_len, n_reads, read_len,
+                    err)
 
 
 # the JAX package's long SW pairs (tests/test_streaming_kernels.py:301-304,

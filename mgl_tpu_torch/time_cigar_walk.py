@@ -31,7 +31,6 @@ import hashlib
 import importlib
 import json
 import pathlib
-import subprocess
 import sys
 
 import numpy as np
@@ -39,6 +38,7 @@ import torch
 
 from mgl_tpu_torch import _build
 from mgl_tpu_torch.core.params import OverhangStrategy, SWParameters
+from mgl_tpu_torch.device import card_name
 from mgl_tpu_torch.kernels.cigar_walk_cuda import cigar_walk, walk_bytes
 from mgl_tpu_torch.ops.cigar_device import walk_start
 from mgl_tpu_torch.pipelines import mapper as mp
@@ -85,10 +85,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     smoke = importlib.import_module("chip_smoke")
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_name()
     params = SWParameters(*smoke.SW_PARAMS)
     rows = []
     for name, make in SHAPES:

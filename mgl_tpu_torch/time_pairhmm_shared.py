@@ -31,10 +31,10 @@ import argparse
 import hashlib
 import inspect
 import json
-import subprocess
 
 import torch
 
+from mgl_tpu_torch.device import card_name
 from mgl_tpu_torch.kernels import pairhmm_cuda as ph
 from mgl_tpu_torch.ops.pairhmm import normalize, use_shared_kernel
 from mgl_tpu_torch.tables import CTX_F32
@@ -82,10 +82,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("time_pairhmm_shared needs an NVIDIA GPU")
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_name()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     forced = "warps_per_read" in inspect.signature(
         ph.pairhmm_shared_f32).parameters

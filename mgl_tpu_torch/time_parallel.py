@@ -23,7 +23,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -31,6 +30,8 @@ import time
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from mgl_tpu_torch.device import card_name
 
 STEP_SHAPE = (4096, 12, 151, 420)
 
@@ -106,14 +107,6 @@ def _rank(rank: int, sort_keys: tuple, step_shape: tuple,
         np.savez(out_path + ".npz", **got)
         with open(out_path, "w") as f:
             json.dump(out, f)
-
-
-def card_name() -> str:
-    """``nvidia-smi``'s name and power limit of the first card."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
 
 
 def main(argv=None) -> int:

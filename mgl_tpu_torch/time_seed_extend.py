@@ -30,12 +30,12 @@ import hashlib
 import importlib
 import json
 import pathlib
-import subprocess
 import sys
 
 import torch
 
 from mgl_tpu_torch import _build
+from mgl_tpu_torch.device import card_name
 from mgl_tpu_torch.kernels.seed_extend_cuda import seed_extend_f32
 from mgl_tpu_torch.ops.pairhmm import normalize
 from mgl_tpu_torch.ops.seed_extend import stage_fast
@@ -76,10 +76,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     smoke = importlib.import_module("chip_smoke")
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_name()
     rows = []
     for name, make in SHAPES:
         reads, haps, pairs = make()

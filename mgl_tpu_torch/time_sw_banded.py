@@ -32,10 +32,10 @@ import argparse
 import hashlib
 import inspect
 import json
-import subprocess
 
 import torch
 
+from mgl_tpu_torch.device import card_name
 from mgl_tpu_torch.kernels import sw_cuda
 from mgl_tpu_torch.testing import cuda_ms, plane_outputs, sw_pairs, sw_tensors
 
@@ -133,10 +133,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("time_sw_banded needs an NVIDIA GPU")
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_name()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     for name, n, tlen, qlen, seed, iters in SHAPES:

@@ -22,12 +22,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 
 import numpy as np
 import torch
 
+from mgl_tpu_torch.device import card_name
 from mgl_tpu_torch.kernels.window_cuda import (window_gather,
                                                window_gather_bytes)
 from mgl_tpu_torch.testing import cuda_ms
@@ -60,9 +60,7 @@ def main(argv=None) -> int:
         print("time_window_gather needs an NVIDIA GPU", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()[0]
+    card = card_name()
     rng = np.random.default_rng(0)
     n_words = -(-REF_BASES // 8)
     nib = rng.integers(0, 4, (n_words + OVERLAP_WORDS, 8), dtype=np.uint32)

@@ -448,6 +448,38 @@ def test_map_reads_stream_equals_jax(jax_interpret):
     assert (got["score2"] > -(2**29)).sum() >= 8
 
 
+def test_lowercase_reads_score_as_the_tpu_route(jax_interpret):
+    """Reads with lowercase bases score as on the JAX package's TPU route:
+    map_reads_stream(device="cpu") equals map_reads(impl="pallas") under
+    the interpreter in every output, where a lowercase base matches its
+    uppercase one; the XLA route (ASCII compare) scores the forward-strand
+    ones lower."""
+    rng = np.random.default_rng(17)
+    ref = rng.choice(BASES, size=20_000)
+    N, L = 32, 100
+    st = rng.integers(0, len(ref) - L, N)
+    reads = ref[st[:, None] + np.arange(L)].copy()
+    mut = rng.random(reads.shape) < 0.01
+    reads[mut] = rng.choice(BASES, int(mut.sum()))
+    reads[N // 4: N // 2] = M.revcomp(reads[N // 4: N // 2])
+    low = rng.random(reads.shape) < 0.03
+    low[N // 2:] = False
+    reads[low] |= 0x20
+    got = M.map_reads_stream(M.ReferenceIndex.build(ref, k=16), reads,
+                             device="cpu")
+    jidx = J.ReferenceIndex.build(ref, k=16)
+    want = J.map_reads(jidx, reads, impl="pallas")
+    _equal_outputs(got, want, OUT_KEYS)
+    assert (got["pos"] >= 0).all()
+    xla = J.map_reads(jidx, reads, impl="xla")
+    # a reverse-strand read is verified as its reverse complement, which
+    # is upper case in both packages
+    fwd_low = low.any(axis=1) & (got["strand"] == 0)
+    assert fwd_low.sum() >= N // 8
+    assert (xla["score"][fwd_low] < got["score"][fwd_low]).all()
+    assert np.array_equal(xla["score"][~fwd_low], got["score"][~fwd_low])
+
+
 def test_stream_equals_map_reads_and_chunks(sim):
     """map_reads_stream's outputs shared with map_reads are map_reads',
     whatever the chunk size; its METRICS timers are recorded."""

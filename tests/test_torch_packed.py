@@ -79,3 +79,19 @@ def test_packed_request_without_reads_is_empty(pairhmm_kat, mode):
         flat = compute_likelihoods_packed(*pack_request(rs, hs),
                                           device="cpu", **mode)
         assert flat.shape == (0,) and flat.dtype == np.float64
+
+
+@pytest.mark.parametrize("mode", MODES, ids=["default", "use_double",
+                                             "fast_path"])
+def test_packed_request_with_empty_sequence_raises(pairhmm_kat, mode):
+    """A 0-length read or a 0-length hap inside a request raises
+    ValueError("empty sequence") in every mode, as PairHmmEngine does (the
+    JAX package's packed entry skips that check: -inf, IndexError or
+    ZeroDivisionError by mode)."""
+    read = kat_read(pairhmm_kat[0])
+    hap = as_u8(pairhmm_kat[0]["hap"])
+    empty_read = {k: v[:0] for k, v in read.items()}
+    for rs, hs in (([read, empty_read], [hap]), ([read], [hap, hap[:0]])):
+        with pytest.raises(ValueError, match="empty sequence"):
+            compute_likelihoods_packed(*pack_request(rs, hs), device="cpu",
+                                       **mode)
