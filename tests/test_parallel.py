@@ -112,7 +112,8 @@ def test_pipeline_likelihoods_match_engine():
     np.testing.assert_allclose(lik, got, rtol=1e-6)
 
 
-def test_pipeline_pallas_kernels_match_xla():
+@pytest.mark.parametrize("dp,hp", [(1, 1), (4, 2)], ids=["1x1", "4x2"])
+def test_pipeline_pallas_kernels_match_xla(dp, hp):
     """The production banded Pallas kernels inside shard_map (TPU
     interpreter on the CPU mesh) produce the same likelihood block and SW
     scores as the lax.scan reference path (VERDICT r1: the sharded step
@@ -123,12 +124,14 @@ def test_pipeline_pallas_kernels_match_xla():
 
     os.environ["MGL_TPU_PALLAS_INTERPRET"] = "1"
     try:
-        # Full 8-device mesh (conftest provisions 16 virtual devices so
-        # the CPU client's thread pool has headroom for the 8 blocking
-        # interpret callbacks; with exactly 8 devices this deadlocks).
+        # The mesh starts at the second CPU device.  Under jax 0.9.0 the
+        # interpreter's `store` (interpret_pallas_call.py:643) runs new
+        # work on the device that io_callback puts its arguments on, the
+        # first CPU device; with that device in a mesh of two or more,
+        # the step and the callback wait on each other.
         # seed=7 data includes reads whose best SW score vs the window
         # is negative — the case where unmasked-diagonal maxima diverge.
-        mesh = make_mesh(4, 2, devices=_cpu_devices(8))
+        mesh = make_mesh(dp, hp, devices=_cpu_devices(1 + dp * hp)[1:])
         reads, haps, ref = make_example_inputs(mesh, seed=7)
         out_p = pipeline_step(mesh, impl="pallas")(reads, haps, ref)
         out_x = pipeline_step(mesh, impl="xla")(reads, haps, ref)
