@@ -329,9 +329,11 @@ def compare_gather(dev) -> tuple[float, str]:
     """The window gather kernel vs its plain version on the card, bit for
     bit: a 1 Mbp reference with N runs and lowercase bases, flat and
     blocked (``_BLOCK_GATE`` forced to 1 with 256 kbp rows), reads of 150
-    and 151 bp with N and lowercase bases, windows at all eight nibble
-    shifts, at the first and the last words and at random.  Raises on a
-    difference; returns (0.0, what was held)."""
+    and 151 bp with N and lowercase bases taken by row (permuted, then
+    repeated) and strand (half reverse complemented, the query codes held
+    to encode(revcomp(read)) too), windows at all eight nibble shifts, at
+    the first and the last words and at random.  Raises on a difference;
+    returns (0.0, what was held)."""
     import numpy as np
     import torch
 
@@ -358,16 +360,25 @@ def compare_gather(dev) -> tuple[float, str]:
             for L in (150, 151):
                 wlen = L + 48
                 starts = window_starts(L, len(ref), wlen, 4096)
-                reads = rng.choice(mixed, (len(starts), L))
+                n = len(starts)
+                reads = rng.choice(mixed, (n - n // 4, L))
+                rows = np.concatenate([rng.permutation(n - n // 4),
+                                       rng.integers(0, n - n // 4, n // 4)])
+                rc = rng.integers(0, 2, n).astype(np.uint8)
                 args = (words, tuple(torch.from_numpy(s).to(dev) for s in
                                      mp._split_starts(starts, blocked)),
-                        torch.from_numpy(mp._pack_codes(reads)).to(dev),
-                        wlen, L)
+                        torch.from_numpy(reads).to(dev),
+                        torch.from_numpy(rows.astype(np.int32)).to(dev),
+                        torch.from_numpy(rc).to(dev), wlen, L)
                 got = window_gather(*args)
                 if dev.type == "cuda":
                     torch.cuda.synchronize()
                 want = window_gather_plain(*args)
-                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                oriented = np.where(rc[:, None] == 1, mp.revcomp(reads[rows]),
+                                    reads[rows])
+                if not (all(torch.equal(a, b) for a, b in zip(got, want))
+                        and np.array_equal(got[1].cpu().numpy(),
+                                           mp.encode(oriented))):
                     raise AssertionError(f"window gather != plain ({layout}, "
                                          f"L = {L})")
                 held.append(f"{layout} L={L} {len(starts)} windows")
@@ -449,13 +460,14 @@ def run_mapper(dev, drive, ref_len: int = MAP_REF_LEN,
     rest = np.nonzero((pos >= 0) & (out["offset"] < 0))[0]
     pick = np.sort(np.random.default_rng(1).choice(
         rest, min(n_check, len(rest)), replace=False))
-    oriented = np.where(out["strand"][pick, None] == 1,
-                        mp.revcomp(reads[pick]), reads[pick])
     words, blocked = mp._ref_device(index, dev)
     tgt, qry = window_gather_plain(
         words, tuple(torch.from_numpy(s).to(dev)
                      for s in mp._split_starts(pos[pick], blocked)),
-        torch.from_numpy(mp._pack_codes(oriented)).to(dev), wlen, read_len)
+        torch.from_numpy(reads[pick]).to(dev),
+        torch.arange(len(pick), dtype=torch.int32, device=dev),
+        torch.from_numpy(out["strand"][pick].astype(np.uint8)).to(dev),
+        wlen, read_len)
     full = lambda v: torch.full((len(pick),), v, dtype=torch.int32,
                                 device=dev)
     ez, _ = sw_banded_plain(tgt, qry, full(wlen), full(read_len), *SW_PARAMS,
@@ -707,7 +719,8 @@ def run_cigar_mapper(dev, drive, index, n_reads: int = MAP_READS,
     # the tiers, by the stream's own rules: exact (the best score), then
     # the certified diagonal where the window is surely not edge-clipped
     start = pos[mapped]
-    nm = mp._nm_at(index.ref, start + pad, oriented(mapped))
+    nm = mp._nm_at(index.ref, start + pad, reads, out["strand"][mapped],
+                   mapped)
     diag = (L - nm) * params.match + nm * params.mismatch
     inner = (start > 0) & (start < len(index.ref) - wlen)
     exact = out["score"][mapped] == L * params.match
@@ -729,7 +742,10 @@ def run_cigar_mapper(dev, drive, index, n_reads: int = MAP_READS,
         tgt, qry = window_gather_plain(
             words_dev, tuple(torch.from_numpy(x).to(dev) for x in
                              mp._split_starts(pos[idx], blocked)),
-            torch.from_numpy(mp._pack_codes(oriented(idx))).to(dev), wlen, L)
+            torch.from_numpy(reads[idx]).to(dev),
+            torch.arange(len(idx), dtype=torch.int32, device=dev),
+            torch.from_numpy(out["strand"][idx].astype(np.uint8)).to(dev),
+            wlen, L)
         ez, words = sw_banded_plain(tgt, qry, full(wlen), full(L),
                                     *SW_PARAMS, indel_init=False,
                                     with_traceback=True)
@@ -2649,19 +2665,19 @@ def main() -> int:
             f"{w} warps, {n_sh * w / sms:.1f} warps an SM; carry row in "
             f"{carry} memory; equal to plain; card {card}")
 
-    # the window gather at one mapper chunk: the first chunk's mapped reads
-    # and their windows, as map_reads_stream hands them to the kernel; the
-    # bound is the bytes it must move
+    # the window gather at one mapper chunk: the first chunk's reads as
+    # they came and a window for each mapped one, by row and strand, as
+    # map_reads_stream hands them to the kernel; the bound is the bytes it
+    # must move
     m_out, m_wlen = mapper["out"], mapper["wlen"]
     sel = np.nonzero(m_out["pos"][:MAP_CHUNK] >= 0)[0]
-    m_reads = mapper["reads"][sel]
-    m_oriented = np.where(m_out["strand"][sel, None] == 1,
-                          mp.revcomp(m_reads), m_reads)
     m_words, m_blocked = mp._ref_device(mapper["index"], dev)
     g_args = (m_words, tuple(torch.from_numpy(s).to(dev) for s in
                              mp._split_starts(m_out["pos"][sel], m_blocked)),
-              torch.from_numpy(mp._pack_codes(m_oriented)).to(dev), m_wlen,
-              MAP_READ_LEN)
+              torch.from_numpy(mapper["reads"][:MAP_CHUNK]).to(dev),
+              torch.from_numpy(sel.astype(np.int32)).to(dev),
+              torch.from_numpy(m_out["strand"][sel].astype(np.uint8)).to(dev),
+              m_wlen, MAP_READ_LEN)
     k_ms = cuda_ms(lambda: wg.window_gather(*g_args), 20)
     p_ms = cuda_ms(lambda: wg.window_gather_plain(*g_args), 3)
     got = wg.window_gather(*g_args)

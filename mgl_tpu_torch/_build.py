@@ -71,7 +71,7 @@ _ENTRIES = {
     "mgl_pairhmm_plane_carry_in_shared": [_I] * 4,
     "mgl_seed_extend": [_P] * 8 + [_I] * 3 + [_P] * 2,
     "mgl_seed_extend_layout": [_I] * 3 + [_P],
-    "mgl_window_gather": [_P] * 5 + [_I64] + [_I] * 4 + [_P] * 3,
+    "mgl_window_gather": [_P] * 7 + [_I64] + [_I] * 3 + [_P] * 3,
     "mgl_cigar_walk": [_P] * 4 + [_I, _I64] + [_I] * 4 + [_P] * 4,
     "mgl_cigar_walk_layout": [_I, _P],
 }
@@ -86,7 +86,7 @@ _HOST_ENTRIES = {
     "radix_sort_kmer_index": [_I64, _I, _P, _P, _P],
     "map_seed_vote": [_I, _I, _P, _I, _I, _P, _P, _P, _I64, _P, _I, _I, _I64,
                       _I] + [_P] * 4,
-    "exact_nm_batch": [_I, _I, _P, _P, _I64, _P, _P, _I],
+    "exact_nm_batch": [_I, _I, _P, _P, _P, _P, _I64, _P, _P, _I],
 }
 # the host entries that return a value (the rest return void)
 _HOST_RESTYPES = {"kmer_scan_canonical": _I64}

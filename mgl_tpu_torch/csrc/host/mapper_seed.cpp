@@ -6,8 +6,10 @@
 // exact_nm_batch, radix_sort_kmer_index), unchanged in meaning: the
 // canonical k-mer index build, its 13-base prefix jump table, the fused
 // seed -> lookup -> diagonal vote of a chunk of reads, and the exact tier's
-// mismatch count.  Each is bit-identical to the NumPy path of
-// mgl_tpu_torch/pipelines/mapper.py, which the tests hold it against.
+// mismatch count (which here also reads a reverse-strand read the other
+// way round, so the caller makes no oriented copy).  Each is bit-identical
+// to the NumPy path of mgl_tpu_torch/pipelines/mapper.py, which the tests
+// hold it against.
 // Built with g++ by mgl_tpu_torch/_build.py beside the CIGAR decoder.
 //
 // Threading uses std::thread over an atomic work queue.
@@ -288,23 +290,44 @@ void map_seed_vote(
 }
 
 // Mismatch count of each read vs the reference at its predicted start
-// (the certified-diagonal / exact-tier input).  Out-of-range columns are
-// clamped to the last reference byte, matching the NumPy
-// np.clip(rd_idx, 0, ref_len-1) gather exactly (those rows are
-// edge-clipped and handled separately by the caller).
+// (the certified-diagonal / exact-tier input).  Read r of the count is row
+// rows[r] of reads (row r where rows is null); where strand is given and
+// strand[r] is 1, it is that row's reverse complement, base j being
+// kRevComp[read[L - 1 - j]] - the bytes mapper.revcomp would have made,
+// compared as they would have been.  Out-of-range columns are clamped to
+// the last reference byte, matching the NumPy np.clip(rd_idx, 0,
+// ref_len-1) gather exactly (those rows are edge-clipped and handled
+// separately by the caller).
+static const struct RevCompTable {
+    uint8_t t[256];
+    RevCompTable() : t() {
+        const char* from = "ACGTacgtNn";
+        const char* to = "TGCATGCANN";
+        for (int i = 0; from[i]; i++) t[(uint8_t)from[i]] = (uint8_t)to[i];
+    }
+} kRevComp;
+
 void exact_nm_batch(int32_t n, int32_t L, const uint8_t* reads,
+                    const int64_t* rows, const int8_t* strand,
                     const uint8_t* ref, int64_t ref_len,
                     const int64_t* pos, int32_t* nm, int32_t n_threads)
 {
     std::atomic<int32_t> next(0);
     const int32_t BLOCK = 1024;
     auto worker = [&]() {
+        std::vector<uint8_t> flip(L);
         for (;;) {
             const int32_t b0 = next.fetch_add(BLOCK);
             if (b0 >= n) return;
             const int32_t b1 = b0 + BLOCK < n ? b0 + BLOCK : n;
             for (int32_t r = b0; r < b1; r++) {
-                const uint8_t* rd = reads + (int64_t)r * L;
+                const uint8_t* rd =
+                    reads + (rows == nullptr ? (int64_t)r : rows[r]) * L;
+                if (strand != nullptr && strand[r] == 1) {
+                    for (int32_t j = 0; j < L; j++)
+                        flip[j] = kRevComp.t[rd[L - 1 - j]];
+                    rd = flip.data();
+                }
                 const int64_t p = pos[r];
                 int32_t bad = 0;
                 if (p >= 0 && p + L <= ref_len) {

@@ -222,16 +222,36 @@ def map_seed_vote(reads: np.ndarray, index, stride: int,
 
 
 def exact_nm(reads: np.ndarray, ref: np.ndarray, pos: np.ndarray,
-             n_threads: int | None = None) -> np.ndarray:
-    """(N,) int32 mismatch count of each (oriented) read vs the reference
-    at its predicted start; columns outside the reference clamp to its
-    first or last byte."""
+             n_threads: int | None = None, strand: np.ndarray | None = None,
+             rows: np.ndarray | None = None) -> np.ndarray:
+    """(N,) int32 mismatch count of each read vs the reference at its
+    predicted start; columns outside the reference clamp to its first or
+    last byte.  Read i is ``reads[rows[i]]`` (``reads[i]`` without
+    ``rows``), and where ``strand[i]`` is 1 its reverse complement,
+    compared as the oriented copy ``mapper.revcomp`` would make; without
+    ``strand`` every read is compared as it is."""
     lib = _build.load_host_library()
     reads = np.ascontiguousarray(reads, np.uint8)
     ref = np.ascontiguousarray(ref, np.uint8)
-    N, L = reads.shape
+    L = reads.shape[1]
     pos = np.ascontiguousarray(pos, np.int64)
+    N = len(pos)
+    if rows is not None:
+        rows = np.ascontiguousarray(rows, np.int64)
+        if len(rows) != N or (N and not 0 <= rows.min() <= rows.max()
+                              < len(reads)):
+            raise ValueError(f"exact_nm: want {N} rows under {len(reads)}")
+    elif N != len(reads):
+        raise ValueError(f"exact_nm: {N} positions for {len(reads)} reads")
+    if strand is not None:
+        strand = np.ascontiguousarray(strand, np.int8)
+        if len(strand) != N:
+            raise ValueError(f"exact_nm: {len(strand)} strands for {N} "
+                             f"reads")
     nm = np.empty(N, np.int32)
-    lib.exact_nm_batch(N, L, _ptr(reads), _ptr(ref), len(ref), _ptr(pos),
-                       _ptr(nm), _threads(n_threads))
+    lib.exact_nm_batch(N, L, _ptr(reads),
+                       None if rows is None else _ptr(rows),
+                       None if strand is None else _ptr(strand),
+                       _ptr(ref), len(ref), _ptr(pos), _ptr(nm),
+                       _threads(n_threads))
     return nm

@@ -289,6 +289,21 @@ def revcomp(seq: np.ndarray) -> np.ndarray:
     return _RC[a[..., ::-1]]
 
 
+def _orient(reads: np.ndarray, rows: np.ndarray, strand: np.ndarray
+            ) -> np.ndarray:
+    """Rows ``rows`` of ``reads`` in aligned orientation, a copy: those
+    whose ``strand`` is 1 reverse complemented by :func:`revcomp` (looked
+    up at call time), counted in ``METRICS`` as map.host_rc_reads.  For
+    the few reads the host compares itself: edge-clipped windows, the
+    CIGAR post-pass."""
+    out = reads[rows]
+    flip = np.nonzero(strand == 1)[0]
+    METRICS.count("map.host_rc_reads", len(flip))
+    if len(flip):
+        out[flip] = revcomp(out[flip])
+    return out
+
+
 def _seed_kmers(reads: np.ndarray, k: int, stride: int):
     """Forward-seed k-mer values/validity: (vals (N,S) u64, valid (N,S),
     offsets (S,))."""
@@ -654,8 +669,7 @@ def map_reads(index: ReferenceIndex, reads: np.ndarray,
                     max(len(index.ref) - wlen, 0)).astype(np.int64)
     # verify in aligned orientation: reverse-strand reads run as their
     # reverse complement (SAM stores SEQ/CIGAR in this orientation)
-    rsub = np.where(strand[mapped, None] == 1,
-                    revcomp(reads[mapped]), reads[mapped])
+    rsub = _orient(reads, mapped, strand[mapped])
     out["pos"][mapped] = start
     if with_cigar:
         res = sw_cigar_windows(index, start, rsub, wlen, params, strategy,
@@ -747,16 +761,6 @@ def _ref_device(index: ReferenceIndex, device: torch.device):
     return cache[device], index._ref_blocked
 
 
-def _pack_codes(reads: np.ndarray) -> np.ndarray:
-    """(B, L) ASCII reads -> (B, ceil(L/2)) packed 4-bit codes (hi nibble
-    = even column): half the bytes to copy to the card."""
-    codes = encode(reads.reshape(-1)).reshape(reads.shape)
-    if codes.shape[1] % 2:
-        codes = np.concatenate(
-            [codes, np.full((len(codes), 1), _REF_PAD, np.uint8)], axis=1)
-    return (codes[:, 0::2] << 4) | codes[:, 1::2]
-
-
 def _split_starts(starts: np.ndarray, blocked: bool):
     """int64 bp window starts -> int32 device index arrays for the
     word-packed reference: flat (word, nibble) pair or blocked
@@ -770,23 +774,46 @@ def _split_starts(starts: np.ndarray, blocked: bool):
             (off >> 3).astype(np.int32), nib)
 
 
+def _upload(device: torch.device, *arrays: np.ndarray
+            ) -> list[torch.Tensor]:
+    """Each array on ``device``.  On a card: copied into pinned memory
+    from torch's caching host allocator and sent by a ``non_blocking``
+    copy, so the host never waits on a pageable one; the allocator reuses
+    the pinned buffer only once the event recorded behind that copy has
+    passed.  On the CPU: the arrays as they are."""
+    ts = [torch.from_numpy(np.require(a, requirements="CW")) for a in arrays]
+    if device.type != "cuda":
+        return ts
+    return [t.pin_memory().to(device, non_blocking=True) for t in ts]
+
+
 def _sw_windows(index: ReferenceIndex, starts: np.ndarray,
-                reads: np.ndarray, wlen: int, params, device: torch.device,
+                reads: np.ndarray, read_row: np.ndarray, rc: np.ndarray,
+                wlen: int, params, device: torch.device,
                 indel_init: bool = False, with_traceback: bool = False):
     """Launch the window gather and the banded SW kernel on ``device``
     without waiting: (ez (6, B) int32, traceback words (B, G, 32) or
     None), still on the device, so host work for the next chunk overlaps
-    this chunk's device time.  No padding of the batch: nothing here
-    recompiles for a new size."""
+    this chunk's device time.  Window b is read ``read_row[b]`` of the
+    (n, L) ASCII ``reads`` as they came, reverse complemented by the
+    gather where ``rc[b]`` is 1 (``METRICS`` map.rc_windows); the reads,
+    the starts, the rows and the strands go up by :func:`_upload`.  No
+    padding of the batch: nothing here recompiles for a new size."""
     from mgl_tpu_torch.kernels.sw_cuda import sw_banded
     from mgl_tpu_torch.kernels.window_cuda import window_gather
 
     ref_dev, blocked = _ref_device(index, device)
-    B, L = reads.shape
-    st = tuple(torch.from_numpy(s).to(device)
-               for s in _split_starts(starts, blocked))
-    packed = torch.from_numpy(_pack_codes(reads)).to(device)
-    tgt, qry = window_gather(ref_dev, st, packed, wlen, L)
+    B, L = len(read_row), reads.shape[1]
+    if len(starts) != B or len(rc) != B or (B and not 0 <= np.min(
+            read_row) <= np.max(read_row) < len(reads)):
+        raise ValueError(f"windows: want {B} starts, strands and read rows "
+                         f"under {len(reads)}")
+    rc = np.asarray(rc, np.uint8)
+    METRICS.count("map.rc_windows", int(np.count_nonzero(rc)))
+    rd, row, flip, *st = _upload(
+        device, np.asarray(reads, np.uint8), np.asarray(read_row, np.int32),
+        rc, *_split_starts(starts, blocked))
+    tgt, qry = window_gather(ref_dev, tuple(st), rd, row, flip, wlen, L)
     return sw_banded(
         tgt, qry, torch.full((B,), wlen, dtype=torch.int32, device=device),
         torch.full((B,), L, dtype=torch.int32, device=device),
@@ -794,40 +821,60 @@ def _sw_windows(index: ReferenceIndex, starts: np.ndarray,
         indel_init=indel_init, with_traceback=with_traceback)
 
 
+def _as_oriented(reads: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The (read_row, rc) of windows whose reads are already oriented, one
+    a read: every row once, forward."""
+    n = len(reads)
+    return np.arange(n, dtype=np.int32), np.zeros(n, np.uint8)
+
+
 def _sw_score_windows_async(index: ReferenceIndex, starts: np.ndarray,
-                            reads: np.ndarray, wlen: int, params,
+                            reads: np.ndarray, read_row: np.ndarray,
+                            rc: np.ndarray, wlen: int, params,
                             device: torch.device) -> torch.Tensor:
     """The (B,) int32 best scores (row 2 of the kernel's ez, ``max``) of
     :func:`_sw_windows` in score-only mode, still on the device."""
-    return _sw_windows(index, starts, reads, wlen, params, device)[0][2]
+    return _sw_windows(index, starts, reads, read_row, rc, wlen, params,
+                       device)[0][2]
 
 
 def sw_score_windows(index: ReferenceIndex, starts: np.ndarray,
                      reads: np.ndarray, wlen: int, params,
                      device: str | torch.device = "cuda") -> np.ndarray:
-    """(B,) int64 best SW score of each read vs its reference window of
-    wlen bases from ``starts``, with the window gather on ``device`` (the
-    reference resident there)."""
-    sc = _sw_score_windows_async(index, starts, reads, wlen, params,
-                                 resolve_device(device))
+    """(B,) int64 best SW score of each oriented read vs its reference
+    window of wlen bases from ``starts``, with the window gather on
+    ``device`` (the reference resident there)."""
+    sc = _sw_score_windows_async(index, starts, reads, *_as_oriented(reads),
+                                 wlen, params, resolve_device(device))
     return sc.cpu().numpy().astype(np.int64)
 
 
-def _nm_at(ref: np.ndarray, pos: np.ndarray, oriented: np.ndarray
+def _nm_at(ref: np.ndarray, pos: np.ndarray, reads: np.ndarray,
+           strand: np.ndarray | None = None, rows: np.ndarray | None = None
            ) -> np.ndarray:
-    """Mismatch count of each oriented read vs the reference at its
-    predicted start (out-of-range columns clamp to the last ref byte -
-    such rows are edge-clipped and the caller handles them separately):
-    one native pass (``exact_nm``), bit-equal to :func:`_nm_at_numpy`."""
-    return exact_nm(oriented, ref, pos).astype(np.int64)
+    """Mismatch count of each read vs the reference at its predicted
+    start (out-of-range columns clamp to the last ref byte - such rows are
+    edge-clipped and the caller handles them separately): one native pass
+    (``exact_nm``), bit-equal to :func:`_nm_at_numpy`.  Read i is
+    ``reads[rows[i]]`` (``reads[i]`` without ``rows``), reverse
+    complemented on the fly where ``strand[i]`` is 1; without ``strand``
+    the reads are taken as oriented."""
+    return exact_nm(reads, ref, pos, strand=strand, rows=rows).astype(
+        np.int64)
 
 
-def _nm_at_numpy(ref: np.ndarray, pos: np.ndarray, oriented: np.ndarray
-                 ) -> np.ndarray:
-    """:func:`_nm_at` by a NumPy gather."""
-    L = oriented.shape[1]
+def _nm_at_numpy(ref: np.ndarray, pos: np.ndarray, reads: np.ndarray,
+                 strand: np.ndarray | None = None,
+                 rows: np.ndarray | None = None) -> np.ndarray:
+    """:func:`_nm_at` by a NumPy gather of the oriented copy."""
+    if rows is not None:
+        reads = reads[rows]
+    if strand is not None:
+        reads = np.where(np.asarray(strand)[:, None] == 1, revcomp(reads),
+                         reads)
+    L = reads.shape[1]
     rd_idx = pos[:, None] + np.arange(L)[None, :]
-    eq = ref[np.clip(rd_idx, 0, len(ref) - 1)] == oriented
+    eq = ref[np.clip(rd_idx, 0, len(ref) - 1)] == reads
     return (L - eq.sum(axis=1)).astype(np.int64)
 
 
@@ -847,6 +894,15 @@ def map_reads_stream(index: ReferenceIndex, reads: np.ndarray,
     vote-based MAPQ.  Same outputs as map_reads without with_cigar, plus
     pos2/score2 diagnostics.  Host stages are timed in ``METRICS`` as
     map.seed, map.host_tier, map.dispatch and map.sync.
+
+    The host makes no oriented or encoded copy of a chunk's reads: the
+    exact-match count reads a reverse-strand read the other way round
+    (:func:`_nm_at` with strands and rows), and each SW window is a row of
+    the chunk's reads as they came and a strand, which the window gather
+    orients and encodes on the device (``METRICS`` map.rc_windows); the
+    chunk's reads go up once, through pinned memory.  Only
+    edge-clipped windows and the CIGAR post-pass still orient their reads
+    on the host (map.host_rc_reads).
 
     ``with_cigar=True`` adds full CIGARs by a certified-diagonal tier: the
     SW recurrence pins alignment starts to the matrix boundary, so a
@@ -887,6 +943,8 @@ def map_reads_stream(index: ReferenceIndex, reads: np.ndarray,
         out["cigar"] = np.array([""] * N, dtype=object)
     tb_idx: list = []            # reads needing the traceback tier
     pending = None
+    METRICS.count("map.rc_windows", 0)
+    METRICS.count("map.host_rc_reads", 0)
 
     def finalize(p):
         fetch, n1, idx1, idx2, diag1 = p
@@ -924,14 +982,12 @@ def map_reads_stream(index: ReferenceIndex, reads: np.ndarray,
         with METRICS.timer("map.host_tier"):
             start = np.clip(pos[mapped] - window_pad, 0,
                             max(len(index.ref) - wlen, 0)).astype(np.int64)
-            rsub = np.where(strand[mapped, None] == 1,
-                            revcomp(sub[mapped]), sub[mapped])
             clipped = start != (pos[mapped] - window_pad)
             # seeds pin the exact best diagonal, so the exact tier needs
             # one equality check at the predicted read start (a read that
             # differs there can't be exact at any other offset); only
             # edge-clipped windows (rare) still take the full-range scan
-            nm = _nm_at(index.ref, pos[mapped], rsub)
+            nm = _nm_at(index.ref, pos[mapped], sub, strand[mapped], mapped)
             exact = ~clipped & (nm == 0)
             exact_o = np.where(exact, np.int64(window_pad), np.int64(-1))
             # certified-diagonal score: what a full-length gap-free
@@ -945,7 +1001,9 @@ def map_reads_stream(index: ReferenceIndex, reads: np.ndarray,
                 ci = np.nonzero(clipped)[0]
                 wi = start[ci, None] + np.arange(wlen)[None, :]
                 win_c = index.ref[np.clip(wi, 0, len(index.ref) - 1)]
-                e2, o2 = _exact_tier(win_c, rsub[ci], window_pad, wlen, L,
+                e2, o2 = _exact_tier(win_c, _orient(sub, mapped[ci],
+                                                    strand[mapped[ci]]),
+                                     window_pad, wlen, L,
                                      np.ones(len(ci), bool))
                 exact[ci] = e2
                 exact_o[ci] = o2
@@ -953,8 +1011,6 @@ def map_reads_stream(index: ReferenceIndex, reads: np.ndarray,
             amb = np.nonzero((pos >= 0) & (pos2 >= 0))[0]
             start2 = np.clip(pos2[amb] - window_pad, 0,
                              max(len(index.ref) - wlen, 0)).astype(np.int64)
-            rsub2 = np.where(strand2[amb, None] == 1,
-                             revcomp(sub[amb]), sub[amb])
         out["pos"][lo + mapped] = start
         out["pos2"][lo + amb] = start2
         out["offset"][lo + mapped[exact]] = exact_o[exact]
@@ -966,9 +1022,12 @@ def map_reads_stream(index: ReferenceIndex, reads: np.ndarray,
         launched = None
         if rest.any() or len(amb):
             with METRICS.timer("map.dispatch"):
+                # primary windows of the inexact reads, then the
+                # competitors', each a row of the chunk and a strand
+                row = np.concatenate([mapped[rest], amb])
                 sc = _sw_score_windows_async(
-                    index, np.concatenate([start[rest], start2]),
-                    np.concatenate([rsub[rest], rsub2], axis=0),
+                    index, np.concatenate([start[rest], start2]), sub, row,
+                    np.concatenate([strand[mapped[rest]], strand2[amb]]),
                     wlen, params, dev)
                 launched = (to_host(sc), int(rest.sum()),
                             lo + mapped[rest], lo + amb, diag_score[rest])
@@ -983,8 +1042,7 @@ def map_reads_stream(index: ReferenceIndex, reads: np.ndarray,
         METRICS.count("map.tb_reads", len(tb_idx))
         with METRICS.timer("map.traceback"):
             tb = np.asarray(tb_idx, np.int64)
-            rsub_tb = np.where(out["strand"][tb, None] == 1,
-                               revcomp(reads[tb]), reads[tb])
+            rsub_tb = _orient(reads, tb, out["strand"][tb])
             res = sw_cigar_windows(index, out["pos"][tb], rsub_tb, wlen,
                                    params, strategy, device=dev)
             for j, i in enumerate(tb):
@@ -1029,7 +1087,7 @@ def _sw_traceback_windows(index: ReferenceIndex, starts: np.ndarray,
     """(ez (6, B), words (B, G, 32), words a band) of :func:`_sw_windows`
     in traceback mode, with ``indel_init`` for INDEL and LEADING_INDEL."""
     ez, words = _sw_windows(
-        index, starts, reads, wlen, params, device,
+        index, starts, reads, *_as_oriented(reads), wlen, params, device,
         indel_init=bool(strategy & (OverhangStrategy.INDEL
                                     | OverhangStrategy.LEADING_INDEL)),
         with_traceback=True)

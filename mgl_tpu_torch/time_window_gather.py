@@ -7,15 +7,17 @@ checksum of what it wrote.
 Shape: 131,072 windows of 198 bases (150 bp reads, window pad 24) and
 their reads, from a flat word-packed reference of 64 Mbp (8M words of
 random ACGT codes) and from the same reference as overlapping rows of
-2^27 bases made blocked by hand; starts and reads random from a fixed
-seed.  Each is timed by CUDA events: after a warm-up call, three times
-the mean of 20 calls; ``ms`` is the median, ``ms_runs`` all three.  The
-bound is the bytes the gather must move over 3.35 TB/s
-(``window_cuda.window_gather_bytes``).  The checksums let two builds run
-one after the other on the same card be held to each other: the script
-uses only the wrapper's arguments, so it runs on an older tree with this
-file copied in.  The last line is the report as one JSON object; ``--out``
-writes it to a file too.  Needs one NVIDIA GPU; imports no jax.
+2^27 bases made blocked by hand; starts random from a fixed seed.  The
+reads are what ``map_reads_stream`` uploads: one chunk of 131,072 ASCII
+reads as they came, random ACGT, and each window a row of them (a
+permutation, so every read once) and a strand (half reverse
+complemented).  Each is timed by CUDA events: after a warm-up call, three
+times the mean of 20 calls; ``ms`` is the median, ``ms_runs`` all three.
+The bound is the bytes the gather must move over 3.35 TB/s
+(``window_cuda.window_gather_bytes``).  The checksums let two builds with
+this interface run one after the other on the same card be held to each
+other.  The last line is the report as one JSON object; ``--out`` writes
+it to a file too.  Needs one NVIDIA GPU; imports no jax.
 """
 
 from __future__ import annotations
@@ -67,8 +69,12 @@ def main(argv=None) -> int:
     words = (nib << (4 * np.arange(8, dtype=np.uint32))).sum(1).astype(
         np.uint32)
     starts = rng.integers(0, REF_BASES - WLEN, N_WINDOWS)
-    packed = torch.from_numpy(rng.integers(
-        0, 256, (N_WINDOWS, (READ_LEN + 1) // 2), dtype=np.uint8)).to(dev)
+    reads = torch.from_numpy(np.frombuffer(b"ACGT", np.uint8)[rng.integers(
+        0, 4, (N_WINDOWS, READ_LEN))]).to(dev)
+    read_row = torch.from_numpy(
+        rng.permutation(N_WINDOWS).astype(np.int32)).to(dev)
+    rc = torch.from_numpy(rng.integers(0, 2, N_WINDOWS, dtype=np.uint8)).to(
+        dev)
     flat = torch.from_numpy(words.view(np.int32)).to(dev)
     row_w = 1 << (ROW_BITS - 3)
     n_rows = -(-n_words // row_w)
@@ -89,7 +95,8 @@ def main(argv=None) -> int:
         st = tuple(torch.from_numpy(s).to(dev) for s in st)
 
         def run():
-            return window_gather(ref, st, packed, WLEN, READ_LEN)
+            return window_gather(ref, st, reads, read_row, rc, WLEN,
+                                 READ_LEN)
 
         runs = [cuda_ms(run, 20) for _ in range(3)]
         out = run()

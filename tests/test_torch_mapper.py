@@ -7,9 +7,12 @@ What is held, each against ``mgl_tpu``:
 - the index build (native and NumPy) and the seeding (native
   ``map_seed_vote`` and the NumPy pipeline), bit for bit;
 - the word-packed window gather at every nibble shift and both reference
-  edges, flat and blocked, and the scores it feeds;
+  edges, flat and blocked, each window's read taken by row and strand and
+  oriented and encoded there, and the scores it feeds;
 - ``map_reads`` (JAX ``impl="xla"``), ``map_reads_stream`` (the JAX device
-  path under the Pallas interpreter) and ``align_and_sort``, every output.
+  path under the Pallas interpreter) and ``align_and_sort``, every output;
+- that ``map_reads_stream`` reverse complements on the host only the reads
+  of edge-clipped windows and of the CIGAR post-pass.
 
 The JAX package pads every window-score launch to at least 1,024 lanes, so
 that XLA compiles few shapes (``mapper.py:828``); under the interpreter on
@@ -201,6 +204,47 @@ def test_nm_at_native_equals_numpy_and_jax(seed_set):
     assert np.array_equal(got, J._nm_at(ref, pos, reads))
 
 
+def test_nm_at_strand_aware_equals_oriented(seed_set):
+    """_nm_at with strands and rows, which reads a strand-1 read the other
+    way round, equals _nm_at_numpy and the JAX package's _nm_at on the
+    copy revcomp orients: both strands, rows permuted and repeated, rows
+    clamped at both reference edges, and bytes outside ACGT (N, n,
+    lowercase, 'x', 0 and 255, which revcomp turns into N or 0)."""
+    ref, reads, tp = seed_set
+    reads = reads.copy()
+    rng = np.random.default_rng(5)
+    odd = rng.random(reads.shape) < 0.01
+    reads[odd] = rng.choice(np.frombuffer(b"NnacgtxU\x00\xff", np.uint8),
+                            int(odd.sum()))
+    rows = np.concatenate([rng.permutation(len(reads)),
+                           rng.integers(0, len(reads), 512)])
+    # each read's own strand (the fixture reverse complements the second
+    # half) at its true start for most rows, a random strand and start
+    # jittered by up to 3 for a quarter
+    strand = (rows >= len(reads) // 2).astype(np.int8)
+    L = reads.shape[1]
+    pos = tp[rows].astype(np.int64)
+    jit = rng.random(len(rows)) < 0.25
+    strand[jit] = rng.integers(0, 2, int(jit.sum()))
+    pos[jit] = np.clip(pos[jit] + rng.integers(-3, 4, int(jit.sum())), 0,
+                       len(ref) - 1)
+    pos[:8] = len(ref) - L + 100
+    pos[8:16] = -40
+    oriented = np.where(strand[:, None] == 1, M.revcomp(reads[rows]),
+                        reads[rows])
+    got = M._nm_at(ref, pos, reads, strand, rows)
+    assert np.array_equal(got, M._nm_at(ref, pos, oriented))
+    assert np.array_equal(got, M._nm_at_numpy(ref, pos, reads, strand, rows))
+    assert np.array_equal(got, J._nm_at(ref, pos, oriented))
+    assert (got[(strand == 1) & ~jit] < L // 10).mean() > 0.9
+    fwd = M._nm_at(ref, pos[:len(reads)], reads[rows[:len(reads)]],
+                   np.zeros(len(reads), np.int8))
+    assert np.array_equal(fwd, J._nm_at(ref, pos[:len(reads)],
+                                        reads[rows[:len(reads)]]))
+    with pytest.raises(ValueError, match="rows"):
+        M._nm_at(ref, pos[:2], reads, None, np.array([0, len(reads)]))
+
+
 def test_positions_past_int32_boundary():
     """Seeds placed past 2.6 Gbp (uint32 positions over 2^31) give the
     JAX package's candidates on both paths: every consumer widens to
@@ -271,29 +315,53 @@ def _gather_set(ref_len: int = 50_011, L: int = 100, pad: int = 24):
     return ref, starts, reads, wlen
 
 
+def _read_rows(n_windows: int, L: int, seed: int):
+    """Reads as a chunk holds them (ASCII with N, lowercase and bytes
+    outside ACGT, some that revcomp turns into 0) and each window's row
+    and strand: rows permuted, then repeated as competitor windows repeat
+    a primary row, strands half and half.  Returns (reads, rows, rc,
+    oriented) - oriented being what the host's revcomp made of each
+    window's read."""
+    rng = np.random.default_rng(seed)
+    n_reads = n_windows - n_windows // 4
+    reads = rng.choice(np.frombuffer(b"ACGTACGTNacgtnxU\x00\xff", np.uint8),
+                       size=(n_reads, L))
+    rows = np.concatenate([rng.permutation(n_reads), rng.integers(
+        0, n_reads, n_windows - n_reads)]).astype(np.int32)
+    rc = (rng.random(n_windows) < 0.5).astype(np.uint8)
+    oriented = np.where(rc[:, None] == 1, M.revcomp(reads[rows]),
+                        reads[rows])
+    return reads, rows, rc, oriented
+
+
+def _rows_args(reads, rows, rc, device="cpu"):
+    return tuple(torch.from_numpy(x).to(device) for x in (reads, rows, rc))
+
+
 @pytest.mark.parametrize("L", [100, 101])
 def test_window_gather_plain_equals_slice(L):
     """window_gather_plain gives each window's codes, encode(ref) sliced
     with code 5 past the end, at every shift and both edges, and each
-    read's codes cut to L (odd L drops the pad nibble)."""
+    window's read as encode(revcomp(read)) or encode(read) by its strand,
+    taken by row (rows permuted and repeated), odd and even L, with N,
+    lowercase and bytes outside ACGT."""
     ref, starts, _, _ = _gather_set(L=L)
     wlen = L + 48
-    rng = np.random.default_rng(L)
-    reads = rng.choice(np.frombuffer(b"ACGTNacgtn", np.uint8),
-                       size=(len(starts), L))
+    reads, rows, rc, oriented = _read_rows(len(starts), L, L)
+    assert rc.sum() and (1 - rc).sum() and len(set(rows)) < len(rows)
     idx = M.ReferenceIndex.build(ref, k=16)
     words, blocked = M._ref_device(idx, torch.device("cpu"))
     assert not blocked and words.dtype == torch.int32
     st = tuple(torch.from_numpy(s) for s in M._split_starts(starts, False))
-    tgt, qry = window_gather_plain(words, st, torch.from_numpy(
-        M._pack_codes(reads)), wlen, L)
+    tgt, qry = window_gather_plain(words, st, *_rows_args(reads, rows, rc),
+                                   wlen, L)
     code = np.concatenate([M.encode(ref), np.full(wlen, 5, np.uint8)])
     want = code[starts[:, None] + np.arange(wlen)[None, :]]
     assert np.array_equal(tgt.numpy(), want)
     assert (tgt.numpy()[starts > len(ref) - wlen] == 5).any()
-    assert np.array_equal(qry.numpy(), M.encode(reads))
-    got_k = window_gather(words, st, torch.from_numpy(M._pack_codes(reads)),
-                          wlen, L)
+    assert np.array_equal(qry.numpy(), M.encode(oriented))
+    assert (qry.numpy() == 4).any()
+    got_k = window_gather(words, st, *_rows_args(reads, rows, rc), wlen, L)
     assert all(torch.equal(a, b) for a, b in zip(got_k, (tgt, qry)))
 
 
@@ -308,33 +376,48 @@ def test_window_gather_plain_words_with_top_bit():
     flat_codes = nib.reshape(-1).astype(np.uint8)
     starts = np.arange(0, 64 * 8 - 80, 13, dtype=np.int64)
     wlen, L = 72, 3
-    packed = torch.zeros((len(starts), 2), dtype=torch.uint8)
+    reads = np.zeros((len(starts), L), np.uint8)
+    rows, rc = np.arange(len(starts), dtype=np.int32), np.zeros(
+        len(starts), np.uint8)
     tgt, _ = window_gather_plain(words, tuple(
         torch.from_numpy(s) for s in M._split_starts(starts, False)),
-        packed, wlen, L)
+        *_rows_args(reads, rows, rc), wlen, L)
     assert np.array_equal(tgt.numpy(),
                           flat_codes[starts[:, None] + np.arange(wlen)])
-    rows = torch.stack([words[:32], words[32:]])
     row = (starts // 256).astype(np.int32)
     keep = (starts % 256) + wlen <= 256
     st = (torch.from_numpy(row[keep]),
           torch.from_numpy(((starts[keep] % 256) >> 3).astype(np.int32)),
           torch.from_numpy((starts[keep] & 7).astype(np.int32)))
-    tgt_b, _ = window_gather_plain(rows, st, packed[:int(keep.sum())], wlen,
-                                   L)
+    tgt_b, _ = window_gather_plain(
+        torch.stack([words[:32], words[32:]]), st,
+        *_rows_args(reads, np.arange(int(keep.sum()), dtype=np.int32),
+                    rc[keep]), wlen, L)
     assert torch.equal(tgt_b, tgt[torch.from_numpy(keep)])
 
 
 def test_window_gather_refuses_bad_inputs():
     words = torch.zeros(16, dtype=torch.int32)
     st = (torch.zeros(2, dtype=torch.int32), torch.zeros(2, dtype=torch.int32))
-    packed = torch.zeros((2, 5), dtype=torch.uint8)
+    reads = torch.zeros((3, 10), dtype=torch.uint8)
+    row = torch.zeros(2, dtype=torch.int32)
+    rc = torch.zeros(2, dtype=torch.uint8)
     with pytest.raises(ValueError, match="starts"):
-        window_gather(words, st[:1], packed, 20, 10)
-    with pytest.raises(ValueError, match="packed"):
-        window_gather(words, st, packed, 20, 12)
+        window_gather(words, st[:1], reads, row, rc, 20, 10)
+    with pytest.raises(ValueError, match="reads"):
+        window_gather(words, st, reads, row, rc, 20, 12)
     with pytest.raises(ValueError, match="ref_words"):
-        window_gather(words.long(), st, packed, 20, 10)
+        window_gather(words.long(), st, reads, row, rc, 20, 10)
+    with pytest.raises(ValueError, match="read_row"):
+        window_gather(words, st, reads, row.long(), rc, 20, 10)
+    with pytest.raises(ValueError, match="rc"):
+        window_gather(words, st, reads, row, rc[:1], 20, 10)
+    idx = M.ReferenceIndex.build(BASES[np.arange(400) % 4], k=16)
+    with pytest.raises(ValueError, match="read rows under 3"):
+        M._sw_score_windows_async(idx, np.zeros(2, np.int64),
+                                  reads.numpy(), np.array([0, 3]),
+                                  np.zeros(2, np.uint8), 20, PARAMS,
+                                  torch.device("cpu"))
 
 
 def test_sw_score_windows_equal_jax(jax_interpret):
@@ -372,11 +455,12 @@ def test_blocked_layout_equals_flat(monkeypatch):
     flat = M.map_reads_stream(flat_idx, reads, device="cpu")
     wstarts = np.array(list(range(8)) + [4096 - 150 + s for s in range(8)]
                        + [len(ref) - 148], np.int64)
-    packed = torch.from_numpy(M._pack_codes(reads[:len(wstarts)]))
+    wreads = _rows_args(reads, (np.arange(len(wstarts)) * 3 % N).astype(
+        np.int32), (np.arange(len(wstarts)) % 2).astype(np.uint8))
     w_flat, _ = M._ref_device(flat_idx, torch.device("cpu"))
     want = window_gather_plain(w_flat, tuple(
         torch.from_numpy(s) for s in M._split_starts(wstarts, False)),
-        packed, 148, L)
+        *wreads, 148, L)
     monkeypatch.setattr(M, "_BLOCK_GATE", 1)
     monkeypatch.setattr(M, "_BLOCK_BITS", 12)
     idx = M.ReferenceIndex.build(ref, k=16)
@@ -387,7 +471,7 @@ def test_blocked_layout_equals_flat(monkeypatch):
     assert is_blocked and w_rows.dim() == 2
     got = window_gather_plain(w_rows, tuple(
         torch.from_numpy(s) for s in M._split_starts(wstarts, True)),
-        packed, 148, L)
+        *wreads, 148, L)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
@@ -446,6 +530,94 @@ def test_map_reads_stream_equals_jax(jax_interpret):
     vote_q = M.mapq_from_votes(got["votes"][:1], got["votes2"][:1])[0]
     assert vote_q >= 25 and got["mapq"][0] <= 15
     assert (got["score2"] > -(2**29)).sum() >= 8
+
+
+def _strand_mix():
+    """96 reads of 100 bp from a 60 kbp reference, every other one
+    reverse complemented: 8 copies of a locus A with a near-duplicate B
+    elsewhere (A less one base: competitor windows), 56 at 2% error, 16
+    with a 2 bp deletion after base 50 (the CIGAR post-pass) and 16 at
+    the reference's two ends (edge-clipped windows).  Returns (ref, reads,
+    the deletion rows, the edge rows)."""
+    rng = np.random.default_rng(31)
+    L = 100
+    ref = rng.choice(BASES, size=60_000)
+    seg_a = ref[3_000: 3_000 + L].copy()
+    ref[16_000: 16_000 + L - 1] = np.delete(seg_a, 60)
+    st = rng.integers(200, len(ref) - L - 200, 72)
+    reads = ref[st[:, None] + np.arange(L)].copy()
+    reads[:8] = seg_a
+    mut = rng.random(reads.shape) < 0.02
+    mut[:8] = False
+    reads[mut] = rng.choice(BASES, int(mut.sum()))
+    dele = np.arange(56, 72)
+    for i in dele:
+        reads[i] = np.concatenate([ref[st[i]: st[i] + 50],
+                                   ref[st[i] + 52: st[i] + L + 2]])
+    edge = np.arange(72, 88)
+    ends = [ref[o: o + L] for o in (0, 2, 5, 11, 17, 19, 21, 23)]
+    ends += [ref[len(ref) - L - o: len(ref) - o]
+             for o in (0, 2, 5, 11, 17, 19, 21, 23)]
+    reads = np.concatenate([reads, np.stack(ends),
+                            ref[st[:8, None] + 7 + np.arange(L)]])
+    reads[1::2] = M.revcomp(reads[1::2])
+    return ref, reads, dele, edge
+
+
+def test_stream_orients_reads_on_the_device(jax_interpret, monkeypatch):
+    """map_reads_stream reverse complements on the host (revcomp, counted
+    by a wrapper) only the reverse-strand reads of edge-clipped windows
+    and of the CIGAR post-pass, map.host_rc_reads agrees, and
+    map.rc_windows counts the reverse-strand SW windows, primary and
+    competitor, that the gather oriented; the outputs equal the JAX
+    package's in CIGAR mode, on a half and half strand mix with
+    competitor loci, deletion reads and edge reads."""
+    from mgl_tpu_torch.core.params import OverhangStrategy
+    from mgl_tpu_torch.utils.metrics import METRICS
+
+    ref, reads, dele, edge = _strand_mix()
+    L = reads.shape[1]
+    idx = M.ReferenceIndex.build(ref, k=16)
+    flipped = []
+    inner = M.revcomp
+
+    def counting(seq):
+        flipped.append(len(seq))
+        return inner(seq)
+
+    monkeypatch.setattr(M, "revcomp", counting)
+    # score mode: strands and competitors from the seeding
+    METRICS.reset()
+    got = M.map_reads_stream(idx, reads, chunk=64, device="cpu")
+    pos, _, strand, _, pos2, strand2 = M.seed_candidates(
+        idx, reads, L, both_strands=True, full=True)
+    assert (pos >= 0).all() and strand.sum() == len(reads) // 2
+    amb = pos2 >= 0
+    assert amb.sum() >= 8 and (strand2[amb] == 1).any()
+    windows = got["offset"] < 0                  # the inexact reads
+    want_rc = int((strand[windows] == 1).sum() + (strand2[amb] == 1).sum())
+    c = METRICS.snapshot()["counters"]
+    assert want_rc > 0 and c["map.rc_windows"] == want_rc
+    clipped = (pos - 24 < 0) | (pos - 24 > len(ref) - L - 48)
+    assert set(np.nonzero(clipped)[0]) <= set(edge) and clipped.sum() >= 8
+    n_edge_rc = int((strand[clipped] == 1).sum())
+    assert n_edge_rc > 0
+    assert sum(flipped) == c["map.host_rc_reads"] == n_edge_rc
+    # CIGAR mode: the post-pass orients its reads on the host too
+    flipped.clear()
+    METRICS.reset()
+    got = M.map_reads_stream(idx, reads, chunk=64, with_cigar=True,
+                             strategy=OverhangStrategy.SOFTCLIP, device="cpu")
+    c = METRICS.snapshot()["counters"]
+    assert set(dele) <= set(np.nonzero(["D" in x for x in got["cigar"]])[0])
+    assert c["map.tb_reads"] >= len(dele)
+    assert c["map.rc_windows"] == want_rc
+    assert sum(flipped) == c["map.host_rc_reads"]
+    assert n_edge_rc + (strand[dele] == 1).sum() <= sum(flipped) <= (
+        n_edge_rc + c["map.tb_reads"])
+    want = J.map_reads_stream(J.ReferenceIndex.build(ref, k=16), reads,
+                              chunk=64, with_cigar=True)
+    _equal_outputs(got, want, OUT_KEYS + ("pos2", "score2", "cigar"))
 
 
 def test_lowercase_reads_score_as_the_tpu_route(jax_interpret):
@@ -618,13 +790,13 @@ def test_mapper_never_imports_jax(tmp_path):
 def test_window_gather_kernel_matches_plain(cuda, L, monkeypatch):
     """The gather kernel equals its plain version on the card bit for bit:
     every shift, both edges, flat and blocked (gate patched small), odd
-    and even L, reads with N and lowercase bases; the launch counter
-    moves once a call."""
+    and even L, reads with N, lowercase and bytes outside ACGT taken by
+    row (permuted and repeated) and strand (half reverse complemented);
+    the query codes are encode(revcomp(read)) or encode(read); the launch
+    counter moves once a call."""
     ref, starts, _, wlen = _gather_set(ref_len=200_003, L=L)
-    rng = np.random.default_rng(L)
-    reads = rng.choice(np.frombuffer(b"ACGTNacgtn", np.uint8),
-                       size=(len(starts), L))
-    packed = torch.from_numpy(M._pack_codes(reads)).to(cuda)
+    reads, rows, rc, oriented = _read_rows(len(starts), L, L)
+    rd_args = _rows_args(reads, rows, rc, cuda)
     for gate in (M._BLOCK_GATE, 1):
         monkeypatch.setattr(M, "_BLOCK_GATE", gate)
         monkeypatch.setattr(M, "_BLOCK_BITS", 27 if gate > 1 else 14)
@@ -634,11 +806,12 @@ def test_window_gather_kernel_matches_plain(cuda, L, monkeypatch):
         st = tuple(torch.from_numpy(s).to(cuda)
                    for s in M._split_starts(starts, blocked))
         n0 = window_gather.launches
-        got = window_gather(words, st, packed, wlen, L)
+        got = window_gather(words, st, *rd_args, wlen, L)
         torch.cuda.synchronize()
         assert window_gather.launches == n0 + 1
-        want = window_gather_plain(words, st, packed, wlen, L)
+        want = window_gather_plain(words, st, *rd_args, wlen, L)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert np.array_equal(got[1].cpu().numpy(), M.encode(oriented))
 
 
 @pytest.mark.cuda
