@@ -85,7 +85,7 @@ _HOST_ENTRIES = {
     "kmer_prefix_table": [_I64, _P, _I, _I64, _P],
     "radix_sort_kmer_index": [_I64, _I, _P, _P, _P],
     "map_seed_vote": [_I, _I, _P, _I, _I, _P, _P, _P, _I64, _P, _I, _I, _I64,
-                      _I] + [_P] * 4,
+                      _I] + [_P] * 5,
     "exact_nm_batch": [_I, _I, _P, _P, _P, _P, _I64, _P, _P, _I],
 }
 # the host entries that return a value (the rest return void)

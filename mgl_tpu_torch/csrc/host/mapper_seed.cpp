@@ -87,6 +87,9 @@ void kmer_prefix_table(int64_t n, const uint32_t* keys, int32_t shift,
 // here every read's <=S*max_hits hits stay in L1 and are voted in place.
 // Outputs are bit-identical to the NumPy path (regression-tested), rows
 // laid out like _vote_diagonals: forward rows [0,N) then reverse [N,2N).
+// counts (2 int64, or NULL) gains the index entries the kept seeds
+// returned into the vote and the valid seeds dropped for more than
+// max_hits entries, as _vote_diagonals counts them.
 // ---------------------------------------------------------------------------
 
 static const uint8_t* code_table()
@@ -170,14 +173,17 @@ void map_seed_vote(
     int32_t max_hits, int64_t ref_len,
     int32_t n_threads,
     // outputs: 2N rows (forward rows then reverse rows)
-    int64_t* pos, int32_t* votes, int32_t* votes2, int64_t* pos2)
+    int64_t* pos, int32_t* votes, int32_t* votes2, int64_t* pos2,
+    int64_t* counts)
 {
     const uint8_t* ct = code_table();
     const int32_t S = (read_len - k) / stride + 1;
     std::atomic<int32_t> next(0);
+    std::atomic<int64_t> n_hits(0), n_capped(0);
     const int32_t BLOCK = 256;
 
     auto worker = [&]() {
+        int64_t hits = 0, capped = 0;
         std::vector<int64_t> fw, rc;
         fw.reserve((size_t)S * max_hits);
         rc.reserve((size_t)S * max_hits);
@@ -196,7 +202,11 @@ void map_seed_vote(
         std::vector<Slot> sl((size_t)S);
         for (;;) {
             const int32_t b0 = next.fetch_add(BLOCK);
-            if (b0 >= n_reads) return;
+            if (b0 >= n_reads) {
+                n_hits += hits;
+                n_capped += capped;
+                return;
+            }
             const int32_t b1 = b0 + BLOCK < n_reads ? b0 + BLOCK : n_reads;
             for (int32_t r = b0; r < b1; r++) {
                 const uint8_t* rd = reads + (int64_t)r * read_len;
@@ -254,9 +264,11 @@ void map_seed_vote(
                     }
                     const int64_t cnt = hi - lo;
                     if (cnt == 0 || cnt > max_hits) {
+                        capped += cnt > max_hits;
                         sl[s].valid = 0;
                         continue;
                     }
+                    hits += cnt;
                     sl[s].lo = lo; sl[s].hi = hi;
                     __builtin_prefetch(positions + lo);
                     __builtin_prefetch(canon_fwd + lo);
@@ -283,10 +295,17 @@ void map_seed_vote(
             }
         }
     };
-    if (n_threads <= 1) { worker(); return; }
-    std::vector<std::thread> pool;
-    for (int32_t t = 0; t < n_threads; t++) pool.emplace_back(worker);
-    for (auto& th : pool) th.join();
+    if (n_threads <= 1) {
+        worker();
+    } else {
+        std::vector<std::thread> pool;
+        for (int32_t t = 0; t < n_threads; t++) pool.emplace_back(worker);
+        for (auto& th : pool) th.join();
+    }
+    if (counts != nullptr) {
+        counts[0] += n_hits.load();
+        counts[1] += n_capped.load();
+    }
 }
 
 // Mismatch count of each read vs the reference at its predicted start

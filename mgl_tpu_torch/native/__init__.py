@@ -21,6 +21,7 @@ import os
 import numpy as np
 
 from mgl_tpu_torch import _build
+from mgl_tpu_torch.utils.metrics import METRICS
 
 
 def _ptr(a: np.ndarray):
@@ -191,7 +192,10 @@ def map_seed_vote(reads: np.ndarray, index, stride: int,
     Returns (pos, votes, votes2, pos2) with 2N rows (forward rows then
     reverse rows), bit-identical to the NumPy path, or None when the index
     shape doesn't qualify (not canonical, k over 16, keys, positions or
-    jump table wider than uint32)."""
+    jump table wider than uint32).  Counts in ``METRICS`` the index
+    entries the kept seeds returned into the vote (map.seed_hits) and the
+    seeds dropped for more than ``max_hits`` entries (map.seeds_capped),
+    as the NumPy path does."""
     if (index.canon_fwd is None or index.k > 16
             or index.sorted_kmers.dtype != np.uint32
             or index.positions.dtype != np.uint32
@@ -208,6 +212,7 @@ def map_seed_vote(reads: np.ndarray, index, stride: int,
     votes = np.empty(2 * N, np.int32)
     votes2 = np.empty(2 * N, np.int32)
     pos2 = np.empty(2 * N, np.int64)
+    counts = np.zeros(2, np.int64)
     # shift so (kmer >> shift) indexes the jump table's buckets
     pshift = (2 * index.k - ((len(ptable) - 1).bit_length() - 1)
               if ptable is not None else 0)
@@ -217,7 +222,9 @@ def map_seed_vote(reads: np.ndarray, index, stride: int,
         len(index.sorted_kmers),
         _ptr(ptable) if ptable is not None else None, pshift,
         int(index.max_hits), len(index.ref), _threads(n_threads),
-        _ptr(pos), _ptr(votes), _ptr(votes2), _ptr(pos2))
+        _ptr(pos), _ptr(votes), _ptr(votes2), _ptr(pos2), _ptr(counts))
+    METRICS.count("map.seed_hits", int(counts[0]))
+    METRICS.count("map.seeds_capped", int(counts[1]))
     return pos, votes, votes2, pos2
 
 

@@ -8,7 +8,8 @@ Stages:
 1. **Index** (host, NumPy and the port's native seeding): sorted
    canonical k-mer table of the reference with a 13-base prefix jump
    table, built by the native scan and radix sort
-   (``csrc/host/mapper_seed.cpp``).
+   (``csrc/host/mapper_seed.cpp``), or with ``device=`` by torch on the
+   device and copied into the same host arrays (a genome in seconds).
 2. **Seed** (host, vectorized): non-overlapping read k-mers -> candidate
    diagonals; majority vote picks a candidate position per read and a
    runner-up locus (native ``map_seed_vote``).
@@ -32,7 +33,11 @@ one does not apply, and what the tests hold it against.
 
 from __future__ import annotations
 
+import concurrent.futures
+import ctypes
 import dataclasses
+import mmap
+import sys
 
 import numpy as np
 import torch
@@ -137,26 +142,31 @@ class ReferenceIndex:
 
     @staticmethod
     def build_multi(contigs: list[tuple[str, np.ndarray]], k: int = 16,
-                    max_hits: int = 64) -> "ReferenceIndex":
+                    max_hits: int = 64,
+                    device: str | torch.device | None = None
+                    ) -> "ReferenceIndex":
         """Index several contigs as one coordinate space.  Contigs are
         joined with max(k, 48) ambiguous bases: k so no k-mer spans a
         boundary (the N-validity mask in _kmers drops them), 48 = 2x the
         default window_pad so an SW verify window at a contig end never
-        reaches real bases of the next contig."""
+        reaches real bases of the next contig.  ``device`` as
+        :meth:`build`."""
         sep = np.full(max(k, 48), ord("N"), np.uint8)
         parts, names, offs, lens = [], [], [], []
         at = 0
         for name, seq in contigs:
             s = (np.frombuffer(bytes(seq), np.uint8)
-                 if not isinstance(seq, np.ndarray) else seq.astype(np.uint8))
+                 if not isinstance(seq, np.ndarray)
+                 else np.asarray(seq, np.uint8))
             names.append(name)
             offs.append(at)
             lens.append(len(s))
             parts.append(s)
             parts.append(sep)
             at += len(s) + len(sep)
-        idx = ReferenceIndex.build(np.concatenate(parts), k=k,
-                                   max_hits=max_hits)
+        ref = _host_empty(at, np.uint8)
+        idx = ReferenceIndex._build(np.concatenate(parts, out=ref), k,
+                                    max_hits, device)
         idx.contig_names = names
         idx.contig_offsets = np.asarray(offs, np.int64)
         idx.contig_lengths = np.asarray(lens, np.int64)
@@ -175,33 +185,54 @@ class ReferenceIndex:
         return np.where(bad, -1, cid), np.where(bad, -1, local)
 
     @staticmethod
-    def build(ref_seq, k: int = 16, max_hits: int = 64) -> "ReferenceIndex":
+    def build(ref_seq, k: int = 16, max_hits: int = 64,
+              device: str | torch.device | None = None) -> "ReferenceIndex":
+        """The index of ``ref_seq``.  ``device`` None builds it on the host
+        (the native scan and radix sort); a device builds it there with
+        torch (:func:`_index_on_device`, k <= 16, under 2^32 bases) and
+        leaves the word-packed reference on it for :func:`_ref_device`.
+        Both give the same arrays, bit for bit.  ``METRICS``: the timer
+        map.index_build and the counter map.index_rows."""
         ref = np.frombuffer(bytes(ref_seq), np.uint8) if not isinstance(
             ref_seq, np.ndarray) else ref_seq.astype(np.uint8)
-        code = encode(ref)
-        # native fast path (k <= 16, offsets fit uint32 - covers the
-        # human genome): one C pass emits canonical (value, position,
-        # fwd-bit) rows, a fused stable radix sort orders them - no
-        # log-doubling temporaries, no argsort, no gather passes.
-        # Bit-identical to _index_rows_numpy (regression-tested).
-        rows = kmer_index_rows(code, k)
-        if rows is None:
-            rows = _index_rows_numpy(code, k)
-        vals, pos, fwd = rows
-        if k <= 16:
-            # 2k bits fit in 32: halves table memory and, more important,
-            # the per-lookup gather bandwidth (the seeding bottleneck)
-            vals = vals.astype(np.uint32, copy=False)
-        ptable = None
-        # the 4^13-entry jump table costs ~270 MB; only worth it once the
-        # k-mer set is big enough that binary search is the bottleneck
-        if k >= _PREFIX_BASES and len(vals) >= 1_000_000:
-            shift = 2 * (k - _PREFIX_BASES)
-            if vals.dtype == np.uint32:
-                # single cache-friendly pass over the sorted keys
-                ptable = kmer_prefix_table(vals, shift, 4 ** _PREFIX_BASES)
-            if ptable is None:
-                ptable = _prefix_table_numpy(vals, shift, 4 ** _PREFIX_BASES)
+        return ReferenceIndex._build(ref, k, max_hits, device)
+
+    @staticmethod
+    def _build(ref: np.ndarray, k: int, max_hits: int,
+               device: str | torch.device | None) -> "ReferenceIndex":
+        """:meth:`build` of an ASCII uint8 array the index may keep."""
+        if device is not None:
+            return _index_on_device(ref, k, max_hits, resolve_device(device))
+        with METRICS.timer("map.index_build"):
+            code = encode(ref)
+            # native fast path (k <= 16, offsets fit uint32 - covers the
+            # human genome): one C pass emits canonical (value, position,
+            # fwd-bit) rows, a fused stable radix sort orders them - no
+            # log-doubling temporaries, no argsort, no gather passes.
+            # Bit-identical to _index_rows_numpy (regression-tested).
+            rows = kmer_index_rows(code, k)
+            if rows is None:
+                rows = _index_rows_numpy(code, k)
+            vals, pos, fwd = rows
+            if k <= 16:
+                # 2k bits fit in 32: halves table memory and, more
+                # important, the per-lookup gather bandwidth (the seeding
+                # bottleneck)
+                vals = vals.astype(np.uint32, copy=False)
+            ptable = None
+            # the 4^13-entry jump table costs ~270 MB; only worth it once
+            # the k-mer set is big enough that binary search is the
+            # bottleneck
+            if _wants_prefix_table(k, len(vals)):
+                shift = 2 * (k - _PREFIX_BASES)
+                if vals.dtype == np.uint32:
+                    # single cache-friendly pass over the sorted keys
+                    ptable = kmer_prefix_table(vals, shift,
+                                               4 ** _PREFIX_BASES)
+                if ptable is None:
+                    ptable = _prefix_table_numpy(vals, shift,
+                                                 4 ** _PREFIX_BASES)
+        METRICS.count("map.index_rows", len(vals))
         return ReferenceIndex(k=k, ref=ref, sorted_kmers=vals,
                               positions=pos,
                               max_hits=max_hits, prefix_table=ptable,
@@ -278,6 +309,294 @@ def _prefix_table_numpy(vals: np.ndarray, shift: int,
     return ptable.astype(np.uint32 if len(vals) < 2**32 else np.int64)
 
 
+def _wants_prefix_table(k: int, n_rows: int) -> bool:
+    """Whether an index of ``n_rows`` k-mers gets the prefix jump table."""
+    return k >= _PREFIX_BASES and n_rows >= 1_000_000
+
+
+# The index built on a device (ReferenceIndex.build(..., device=...)).  The
+# k-mer starts are scanned in blocks of _SCAN_BLOCK; each block keeps its
+# canonical values on the device as int32 value - 2^31 (so that signed
+# order is the values' order), _NO_KMER where the window holds an
+# ambiguous base, beside the forward bits.  The rows are then sorted in
+# passes over ranges of values, none of over _SORT_PASS rows, and copied
+# pass by pass into the host arrays that seeding reads.
+_SCAN_BLOCK = 1 << 27
+_SORT_PASS = 1 << 28
+_PACK_BLOCK = 1 << 25  # bases a block of encoding and packing: int32 temps
+                       # of 128 MB
+_NO_KMER = 2**31 - 1   # the all-T k-mer's 4^k - 1 (at k = 16), never canonical
+_BUCKET_BITS = 16      # a pass plan's histogram: 2^16 buckets of values
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _roll(x: torch.Tensor, k: int, join) -> torch.Tensor:
+    """``join`` folded over every window of ``k`` elements of ``x`` by log
+    doubling, k cut into powers of two as :func:`_kmers` cuts it:
+    join(a, b, la, lb) combines a window of la elements with the window of
+    lb elements that follows it."""
+    n = len(x) - k + 1
+    pieces, w, span = {}, x, 1
+    if k & 1:
+        pieces[1] = w
+    while span * 2 <= k:
+        w = join(w[:len(w) - span], w[span:], span, span)
+        span *= 2
+        if k & span:
+            pieces[span] = w
+    acc, done = None, 0
+    for p in sorted(pieces, reverse=True):
+        piece = pieces[p][done:]
+        if acc is None:
+            acc = piece
+        else:
+            m = min(len(acc), len(piece))
+            acc = join(acc[:m], piece[:m], done, p)
+        done += p
+    return acc[:n]
+
+
+def _canonical_block(code: torch.Tensor, k: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values (m,) int32, forward (m,) bool) of the m = len(code) - k + 1
+    k-mers of a block of 2-bit codes: each canonical value less 2^31, or
+    _NO_KMER where the window holds an ambiguous base, and whether the
+    forward form is the canonical one (:func:`_index_rows_numpy`'s rows,
+    not yet sorted)."""
+    c = code.to(torch.int64).clamp_(max=3)
+    fwd = _roll(c, k, lambda a, b, la, lb: (a << (2 * lb)) | b)
+    rev = _roll(3 - c, k, lambda a, b, la, lb: a | (b << (2 * la)))
+    del c
+    bad = _roll(code > 3, k, lambda a, b, la, lb: a | b)
+    canon = torch.minimum(fwd, rev)
+    is_fwd = fwd <= rev
+    del fwd, rev
+    canon.sub_(2**31).masked_fill_(bad, _NO_KMER)
+    return canon.to(torch.int32), is_fwd
+
+
+def _in_keys(vals: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Mask of the stored values (:func:`_canonical_block`) whose key lies
+    in [lo, hi), hi at most 4^k - 1."""
+    return (vals >= lo - 2**31) & (vals <= hi - 1 - 2**31)
+
+
+def _key_counts(blocks: list, lo: int, hi: int, shift: int) -> list[int]:
+    """The rows of ``blocks`` whose key lies in [lo, hi), counted in
+    buckets of 2^shift keys from lo."""
+    total = torch.zeros(((hi - lo - 1) >> shift) + 1, dtype=torch.int64)
+    for _, vals, _ in blocks:
+        v = vals[_in_keys(vals, lo, hi)].to(torch.int64)
+        total += torch.bincount((v + (2**31 - lo)) >> shift,
+                                minlength=len(total)).cpu()
+    return total.tolist()
+
+
+def _sort_passes(blocks: list, k: int) -> list[tuple[int, int, int, bool]]:
+    """(lo, hi, rows, sort) of each pass, in key order: ranges [lo, hi) of
+    keys that split the index's rows into passes of at most _SORT_PASS
+    rows and under 2^30 keys each.  A bucket over _SORT_PASS rows is cut
+    into finer buckets, down to one key; one key's rows take no sort,
+    since the scan gives them in position order."""
+    out = []
+
+    def plan(lo: int, hi: int, shift: int) -> None:
+        cur = None                              # [lo, hi, rows]
+        for j, c in enumerate(_key_counts(blocks, lo, hi, shift)):
+            b_lo = lo + (j << shift)
+            b_hi = min(b_lo + (1 << shift), hi)
+            if cur is not None and (cur[2] + c > _SORT_PASS
+                                    or b_hi - cur[0] > 2**30):
+                out.append((*cur, True))
+                cur = None
+            if c > _SORT_PASS:
+                if b_hi - b_lo == 1:
+                    out.append((b_lo, b_hi, c, False))
+                else:
+                    plan(b_lo, b_hi, max(shift - _BUCKET_BITS, 0))
+            elif cur is None:
+                cur = [b_lo, b_hi, c]
+            else:
+                cur[1:] = [b_hi, cur[2] + c]
+        if cur is not None:
+            out.append((*cur, True))
+
+    plan(0, 4**k - 1, max(2 * k - _BUCKET_BITS, 0))
+    return [p for p in out if p[2]]
+
+
+def _pass_rows(blocks: list, lo: int, hi: int) -> torch.Tensor:
+    """The rows of keys in [lo, hi) in scan order, each as the int64
+    (key - lo) << 33 | position << 1 | forward bit, so that their order
+    is the index's: by key, then position."""
+    parts = []
+    for start, vals, fwd in blocks:
+        at = torch.nonzero(_in_keys(vals, lo, hi)).squeeze(1)
+        parts.append(((vals[at].to(torch.int64) + (2**31 - lo)) << 33)
+                     | ((at + start) << 1) | fwd[at].to(torch.int64))
+    return torch.cat(parts)
+
+
+def _as_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) as int32 of the same low 32 bits."""
+    return (x - ((x >> 31) << 32)).to(torch.int32)
+
+
+_MADV_HUGEPAGE = 14
+_HUGE_MIN = 1 << 26
+
+
+def _advise_huge(a: np.ndarray) -> np.ndarray:
+    """Asks the kernel to back ``a``'s pages with huge pages
+    (``madvise(MADV_HUGEPAGE)``), before any of them is touched.  Seeding
+    reads the index's arrays at random, a cache miss a lookup: over a
+    genome's ~28 GB of tables each miss is, with 4 KiB pages, also a TLB
+    miss whose page walk misses too.  NumPy gives this advice itself only
+    where the kernel reports version 4.6 or later.  Arrays under
+    ``_HUGE_MIN`` bytes are left alone; where the kernel refuses the advice
+    it is ignored."""
+    if a.nbytes < _HUGE_MIN or not sys.platform.startswith("linux"):
+        return a
+    page = mmap.PAGESIZE
+    lo = -(-a.ctypes.data // page) * page
+    hi = (a.ctypes.data + a.nbytes) // page * page
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.madvise(ctypes.c_void_p(lo), ctypes.c_size_t(hi - lo),
+                 _MADV_HUGEPAGE)
+    return a
+
+
+def _host_empty(n: int, dtype) -> np.ndarray:
+    """``np.empty(n, dtype)`` advised into huge pages (:func:`_advise_huge`)."""
+    return _advise_huge(np.empty(n, dtype))
+
+
+class _ToHost:
+    """Copies device tensors into host NumPy arrays of the same bytes.  On a
+    card each goes through one pinned staging buffer of ``nbytes`` and on
+    into the array by ``threads`` threads: a pageable copy of a fresh array
+    runs at ~2 GB/s, faulting its pages in on one thread.  On the CPU the
+    tensor is copied straight in."""
+
+    def __init__(self, dev: torch.device, nbytes: int, threads: int = 8):
+        self.stage = self.pool = None
+        self.threads = threads
+        if dev.type == "cuda":
+            self.stage = torch.empty(nbytes, dtype=torch.uint8,
+                                     pin_memory=True)
+            self.pool = concurrent.futures.ThreadPoolExecutor(threads)
+
+    def __enter__(self) -> "_ToHost":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.pool is not None:
+            self.pool.shutdown()
+        self.stage = None
+
+    def put(self, dst: np.ndarray, src: torch.Tensor) -> None:
+        if self.stage is None:
+            torch.from_numpy(dst).copy_(src)
+            return
+        raw = self.stage[:dst.nbytes]
+        raw.copy_(src.contiguous().view(torch.uint8))
+        n = 4 * self.threads
+        for f in [self.pool.submit(np.copyto, a, b) for a, b in zip(
+                np.array_split(dst.view(np.uint8), n),
+                np.array_split(raw.numpy(), n))]:
+            f.result()
+
+
+def _codes_on(ref: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """:func:`encode` of ASCII ``ref`` on ``dev``: the bases sent up once
+    and looked up there in place."""
+    lut = torch.from_numpy(_CODE).to(dev)
+    code = torch.from_numpy(np.require(ref, np.uint8, "CW")).to(dev)
+    if code.data_ptr() == ref.ctypes.data:
+        code = code.clone()
+    for lo in range(0, len(code), _PACK_BLOCK):
+        blk = code[lo: lo + _PACK_BLOCK]
+        blk.copy_(lut[blk.to(torch.int32)])
+    return code
+
+
+def _index_on_device(ref: np.ndarray, k: int, max_hits: int,
+                     dev: torch.device) -> "ReferenceIndex":
+    """:meth:`ReferenceIndex.build` on ``dev`` with torch: the 2-bit codes
+    sent up once, every N-free k-mer's canonical value, position and
+    forward bit emitted there, sorted in passes (:func:`_sort_passes`),
+    copied into the host arrays, and the prefix table counted from the
+    sorted keys - the arrays of the host build, bit for bit.  The
+    word-packed reference is made from the same codes and kept on the
+    index for :func:`_ref_device`; every other temporary is freed.
+    ``METRICS`` timers map.index_build (= map.index_scan +
+    map.index_sort + map.index_copy) and map.pack_ref; counter
+    map.index_rows."""
+    if not 1 <= k <= 16 or len(ref) >= 2**32:
+        raise ValueError(f"the index builds on a device for k <= 16 under "
+                         f"2^32 bases, not k = {k} over {len(ref)}")
+    n = max(len(ref) - k + 1, 0)
+    with METRICS.timer("map.index_build"), METRICS.timer("map.index_scan"):
+        code = _codes_on(ref, dev)
+        blocks = [(lo, *_canonical_block(
+            code[lo: min(lo + _SCAN_BLOCK, n) + k - 1], k))
+            for lo in range(0, n, _SCAN_BLOCK)]
+        passes = _sort_passes(blocks, k)
+        _sync(dev)
+    with METRICS.timer("map.pack_ref"):
+        words, blocked = _ref_layout(code, len(ref))
+        del code
+        _sync(dev)
+    M = sum(p[2] for p in passes)
+    keys = _host_empty(M, np.uint32)
+    pos = _host_empty(M, np.uint32)
+    fwd = _host_empty(M, np.bool_)
+    ptable = None
+    counts = None
+    if _wants_prefix_table(k, M):
+        ptable = _host_empty(4**_PREFIX_BASES + 1, np.uint32)
+        counts = torch.zeros(len(ptable), dtype=torch.int64, device=dev)
+    at = 0
+    with METRICS.timer("map.index_build"), _ToHost(dev, 4 * max(
+            [p[2] for p in passes] + [len(ptable) if counts is not None
+                                      else 0])) as host:
+        for lo, hi, c, to_sort in passes:
+            with METRICS.timer("map.index_sort"):
+                rows = _pass_rows(blocks, lo, hi)
+                if to_sort:
+                    rows = torch.sort(rows).values
+                key = (rows >> 33) + lo
+                if counts is not None:
+                    counts[1:] += torch.bincount(
+                        key >> (2 * (k - _PREFIX_BASES)),
+                        minlength=4**_PREFIX_BASES)
+                _sync(dev)
+            with METRICS.timer("map.index_copy"):
+                host.put(keys[at:at + c].view(np.int32), _as_int32(key))
+                host.put(pos[at:at + c].view(np.int32),
+                         _as_int32((rows >> 1) & 0xFFFFFFFF))
+                host.put(fwd[at:at + c], (rows & 1).bool())
+            del rows, key
+            at += c
+        del blocks
+        if counts is not None:
+            with METRICS.timer("map.index_copy"):
+                host.put(ptable.view(np.int32),
+                         _as_int32(torch.cumsum(counts, 0)))
+            del counts
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    METRICS.count("map.index_rows", M)
+    return ReferenceIndex(k=k, ref=ref, sorted_kmers=keys, positions=pos,
+                          max_hits=max_hits, prefix_table=ptable,
+                          canon_fwd=fwd, _ref_dev={dev: words},
+                          _ref_blocked=blocked)
+
+
 _RC = np.zeros(256, np.uint8)
 for _a, _b in zip(b"ACGTacgtNn", b"TGCATGCANN"):
     _RC[_a] = _b
@@ -345,7 +664,10 @@ def _vote_diagonals(index: ReferenceIndex, read_len: int,
     the exact best diagonal (the most-supported single diagonal inside
     the winning +-8 bin), its vote count, the runner-up locus' count, and
     the runner-up's exact diagonal (-1 if none) - the competitor the
-    verify stage rescores for score-based MAPQ.
+    verify stage rescores for score-based MAPQ.  Counts in ``METRICS``
+    the index entries the kept seeds returned (map.seed_hits) and the
+    valid seeds dropped for more than ``max_hits`` entries
+    (map.seeds_capped), as the native ``map_seed_vote`` does.
 
     On a canonical index, one lookup serves both strands: each hit's
     strand is ``ref_fwd_bit != read_fwd_bit``.  With ``rc_seed_off``
@@ -370,6 +692,8 @@ def _vote_diagonals(index: ReferenceIndex, read_len: int,
     lo, hi = index.lookup(look.reshape(-1))
     cnt = hi - lo
     keep = (cnt > 0) & (cnt <= index.max_hits) & valid.reshape(-1)
+    METRICS.count("map.seeds_capped", int(np.count_nonzero(
+        (cnt > index.max_hits) & valid.reshape(-1))))
     lo, hi = lo[keep], hi[keep]
     seed_read = np.repeat(np.arange(N, dtype=np.int64), S)[keep]
     seed_off = seed_off.reshape(-1)[keep]
@@ -379,6 +703,7 @@ def _vote_diagonals(index: ReferenceIndex, read_len: int,
     votes = np.zeros(n_rows, np.int32)
     votes2 = np.zeros(n_rows, np.int32)
     total = int((hi - lo).sum())
+    METRICS.count("map.seed_hits", total)
     if total == 0:
         return pos, votes, votes2, pos.copy()
     reps = (hi - lo).astype(np.int64)
@@ -715,7 +1040,8 @@ def _pack_ref_words(code: np.ndarray) -> np.ndarray:
     """(n,) uint8 codes -> (ceil(n/8),) uint32 words, nibble j of word w
     = code[8w + j]; the ragged tail is _REF_PAD-filled.  Chunked so the
     widened uint32 packing temp stays ~128 MB (4M words x 8 lanes x 4 B)
-    even at genome scale."""
+    even at genome scale.  The host form that :func:`_pack_words`, which
+    packs on the device, is held against."""
     n = len(code)
     nw = -(-n // 8)
     padded = np.full(nw * 8, _REF_PAD, np.uint8)
@@ -732,32 +1058,55 @@ def _pack_ref_words(code: np.ndarray) -> np.ndarray:
     return out
 
 
+def _pack_words(code: torch.Tensor, tail: int) -> torch.Tensor:
+    """:func:`_pack_ref_words` of 2-bit codes on their device, as int32
+    (the same bits), followed by ``tail`` words of _PAD_WORD."""
+    nw = -(-len(code) // 8)
+    out = torch.full((nw + tail,), int(_PAD_WORD), dtype=torch.int32,
+                     device=code.device)
+    shifts = torch.arange(0, 32, 4, dtype=torch.int32, device=code.device)
+    step = _PACK_BLOCK // 8                        # words a block
+    for lo in range(0, nw, step):
+        hi = min(lo + step, nw)
+        blk = code[lo * 8: hi * 8].to(torch.int32)
+        if len(blk) < (hi - lo) * 8:
+            blk = torch.cat([blk, blk.new_full(((hi - lo) * 8 - len(blk),),
+                                               _REF_PAD)])
+        # the nibbles are disjoint, so their sum is their OR; the top
+        # nibble holds at most _REF_PAD, so no word reaches the sign bit
+        out[lo:hi] = (blk.view(-1, 8) << shifts).sum(1, dtype=torch.int32)
+    return out
+
+
+def _ref_layout(code: torch.Tensor, n: int) -> tuple[torch.Tensor, bool]:
+    """(words, blocked) of :func:`_ref_device` from the reference's n 2-bit
+    codes on their device."""
+    ov_w = _BLOCK_OVERLAP // 8 + 8
+    if n <= _BLOCK_GATE:
+        return _pack_words(code, ov_w), False
+    S_w = 1 << (_BLOCK_BITS - 3)                   # words per row
+    padded = _pack_words(code, S_w + ov_w)
+    n_rows = -(-(len(padded) - S_w - ov_w) // S_w)
+    return padded.as_strided((n_rows, S_w + ov_w), (S_w, 1)).contiguous(), \
+        True
+
+
 def _ref_device(index: ReferenceIndex, device: torch.device):
     """The word-packed reference on ``device``: (int32 tensor, blocked).
     A flat padded vector up to _BLOCK_GATE bases; an overlapping (n_rows,
-    words_per_row) matrix above.  Made once a device and cached on the
-    index."""
+    words_per_row) matrix above.  Packed on ``device`` from the bases sent
+    up (:func:`_pack_words`, ``METRICS`` map.pack_ref) once a device and
+    cached on the index; an index built on ``device`` holds it already."""
     cache = index._ref_dev
     if cache is None:
         cache = index._ref_dev = {}
     if device in cache:
         return cache[device], index._ref_blocked
-    n = len(index.ref)
-    words = _pack_ref_words(encode(index.ref))
-    ov_w = _BLOCK_OVERLAP // 8 + 8
-    if n <= _BLOCK_GATE:
-        host = np.concatenate([words, np.full(ov_w, _PAD_WORD, np.uint32)])
-        index._ref_blocked = False
-    else:
-        S_w = 1 << (_BLOCK_BITS - 3)               # words per row
-        n_rows = -(-len(words) // S_w)
-        padded = np.concatenate(
-            [words, np.full(S_w + ov_w, _PAD_WORD, np.uint32)])
-        rows = np.lib.stride_tricks.as_strided(
-            padded, shape=(n_rows, S_w + ov_w), strides=(4 * S_w, 4))
-        host = np.ascontiguousarray(rows)
-        index._ref_blocked = True
-    cache[device] = torch.from_numpy(host.view(np.int32)).to(device)
+    with METRICS.timer("map.pack_ref"):
+        code = _codes_on(index.ref, device)
+        cache[device], index._ref_blocked = _ref_layout(code, len(index.ref))
+        del code
+        _sync(device)
     return cache[device], index._ref_blocked
 
 
